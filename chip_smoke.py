@@ -10,8 +10,9 @@ with its seconds:
 
 1. build      -- nvcc builds the paged-decode kernels (K1 paged_kv_write,
                  K2 paged_gather_attend) from the checkout's sources;
-2. kernels    -- each kernel against its plain PyTorch version at the main
-                 path's shapes (f32 and bf16, 1 and 2 emulated shards,
+2. kernels    -- each kernel against its plain PyTorch version (the
+                 composed oracle, ``kernels/paged_decode/ref.py``) at the
+                 main path's shapes (f32 and bf16, 1 and 2 emulated shards,
                  window None and 64) and at other head groups, head dims
                  and page sizes, with kernel / plain / library times and
                  the least time the card could take (bound);
@@ -59,9 +60,10 @@ B, HKV, G, D, PS, MAX_LP = 8, 8, 2, 128, 16, 32
 # rtol 1e-5 + atol 1e-5; m (a max of q.k products) within atol 1e-5
 K2_RTOL, K2_ATOL, M_ATOL = 1e-5, 1e-5, 1e-5
 # teacher-forced logits, kernels against composed, relative to max |logit|
-# over the run: f32 1e-3; bf16 5e-2 (one bf16 rounding of an attention
-# output that lands on the other side of a tie moves a logit by ~2^-8 of
-# its size, and 28 layers carry it on)
+# over the run: f32 1e-3, which with phase 2 carries correctness; bf16
+# 5e-2, a smoke check of the bf16 path only (one bf16 rounding of an
+# attention output that lands on the other side of a tie moves a logit by
+# ~2^-8 of its size, and 28 layers and 64 steps of cache carry it on)
 LOGIT_RTOL = {"float32": 1e-3, "bfloat16": 5e-2}
 
 SERVE_ENGINE = dict(slots=8, max_len=512, max_fused_steps=8, retain_frames=16)
@@ -161,7 +163,7 @@ def kernel_case(seed, dtype, dev, g=G, d=D, ps=PS, max_lp=MAX_LP):
     rng = np.random.default_rng(seed)
     lengths = rng.integers(1, max_lp * ps + 1, B).astype(np.int32)
     lengths[1], lengths[2] = 0, min(7, ps)   # an empty row; a write to page 0
-    bt, _, fr = mk_vm(rng, B, max_lp, ps, lengths, shared_page0=True)
+    bt, fl, fr = mk_vm(rng, B, max_lp, ps, lengths, shared_page0=True)
     wm = np.ones(B, bool)
     wm[5] = False
     n_frames = B * max_lp
@@ -169,90 +171,104 @@ def kernel_case(seed, dtype, dev, g=G, d=D, ps=PS, max_lp=MAX_LP):
     def t(a, dt=None):
         return torch.tensor(a, device=dev, dtype=dt)
     return dict(
-        q=t(rng.normal(size=(B, HKV, g, d)).astype(np.float32), dtype),
+        q=t(rng.normal(size=(B, HKV * g, d)).astype(np.float32), dtype),
         k_new=t(rng.normal(size=(B, HKV, d)).astype(np.float32), dtype),
         v_new=t(rng.normal(size=(B, HKV, d)).astype(np.float32), dtype),
         kp=t(rng.normal(size=(n_frames, ps, HKV, d)).astype(np.float32), dtype),
         vp=t(rng.normal(size=(n_frames, ps, HKV, d)).astype(np.float32), dtype),
-        bt=t(bt), lengths=t(lengths), fr=t(fr), wm=t(wm),
-        lengths_np=lengths, bt_np=bt, wm_np=wm, fr_np=fr)
+        bt=t(bt), fl=t(fl), lengths=t(lengths), fr=t(fr), wm=t(wm), group=g,
+        max_pages=max_lp, lengths_np=lengths, bt_np=bt, wm_np=wm, fr_np=fr)
 
 
 def k1_bytes(x, n_shards, sid):
-    """Bytes K1 must move: the new rows read, the rows this shard writes,
-    the tables read once."""
+    """Bytes K1 moves on these inputs: each row's length and write-mask
+    flag; for a row that passes those, its block-table word and, for a
+    mapped frame, that frame's read-only flag; for a row it writes, the new
+    K and V rows read and written."""
     es_in, es_kv = x["k_new"].element_size(), x["kp"].element_size()
     row = HKV * D
-    written = 0
+    n_frames = len(x["fr_np"])
+    nbytes = B * (4 + 1)
     for b in range(B):
         ln = int(x["lengths_np"][b])
-        if not x["wm_np"][b] or ln <= 0:
+        if not x["wm_np"][b] or ln <= 0 or (ln - 1) // PS >= MAX_LP:
             continue
+        nbytes += 4
         f = int(x["bt_np"][b, (ln - 1) // PS])
-        if f >= 0 and not x["fr_np"][f] and f % n_shards == sid:
-            written += 1
-    tables = x["bt_np"].nbytes + 4 * B + x["fr_np"].nbytes + B
-    return 2 * B * row * es_in + 2 * written * row * es_kv + tables
+        if not 0 <= f < n_frames:
+            continue
+        nbytes += 1
+        if not x["fr_np"][f] and f % n_shards == sid:
+            nbytes += 2 * row * (es_in + es_kv)
+    return nbytes
 
 
 def k2_work(x, n_shards, sid, window):
     """(bytes, f32 operations) K2 must spend on these inputs: each attended
     (frame, slot) K and V row read once however many sequences share it,
-    q and the tables read once, (acc, m, l) written once; 4*G*D operations
-    per attended position and KV head (q.k and p.v)."""
+    q, the lengths and the block-table entries it walks read once,
+    (acc, m, l) written once; 4*G*D operations per attended position and
+    KV head (q.k and p.v)."""
     es_kv, es_q = x["kp"].element_size(), x["q"].element_size()
-    rows, ops = set(), 0
+    rows, entries, ops = set(), 0, 0
     for b in range(B):
         ln = int(x["lengths_np"][b])
         lo = max(0, ln - window) if window else 0
+        if ln > lo:
+            entries += (ln - 1) // PS - lo // PS + 1
         for pos in range(lo, ln):
             f = int(x["bt_np"][b, pos // PS])
             if f >= 0 and f % n_shards == sid:
                 rows.add((f, pos % PS))
                 ops += 4 * G * D * HKV
     nbytes = (2 * len(rows) * HKV * D * es_kv + B * HKV * G * D * es_q
-              + x["bt_np"].nbytes + 4 * B + B * HKV * G * (D + 2) * 4)
+              + 4 * entries + 4 * B + B * HKV * G * (D + 2) * 4)
     return nbytes, ops
 
 
-def check_case(x, n_shards, window, err):
-    """Both kernels against their plain versions on one input set, every
-    emulated shard; raises on a mismatch, folds max errors into ``err``."""
+def check_shard(x, sid, n_shards, window, use_vm, err, what):
+    """Both kernels (``ops.paged_decode_shard``'s fused impl) against their
+    plain versions (its composed impl) on one emulated shard: pages
+    byte-equal, (acc, m, l) within the stated tolerance.  Raises on a
+    mismatch, folds max errors into ``err``; returns the fused outputs."""
     import torch
-    from repro_torch.kernels.paged_decode import kernel as K
-    what = (f"{x['kp'].dtype} G={x['q'].shape[2]} D={x['q'].shape[3]} "
+    from repro_torch.kernels.paged_decode import ops
+    kp = x["kp"][sid::n_shards].contiguous()
+    vp = x["vp"][sid::n_shards].contiguous()
+    outs = {impl: ops.paged_decode_shard(
+        x["q"], x["k_new"], x["v_new"], kp.clone(), vp.clone(), x["lengths"],
+        x["bt"], x["fl"], x["fr"], x["wm"], sid=sid, n_shards=n_shards,
+        head_start=0, group=x["group"], window=window,
+        max_pages=x["max_pages"], use_vm=use_vm, impl=impl)
+        for impl in ("fused", "composed")}
+    torch.cuda.synchronize()
+    f, c = outs["fused"], outs["composed"]
+    if not (torch.equal(f[3], c[3]) and torch.equal(f[4], c[4])):
+        raise AssertionError(f"K1 pages differ from plain: {what} sid={sid}")
+    for name, a, r in zip("acc m l".split(), f[:3], c[:3]):
+        dlt = (a - r).abs()
+        e = dlt.max().item()
+        err["k2"] = max(err["k2"], e)
+        tol = M_ATOL if name == "m" else K2_ATOL + K2_RTOL * r.abs()
+        if not bool((dlt <= tol).all()):
+            raise AssertionError(f"K2 {name} differs from plain by {e}: "
+                                 f"{what} sid={sid}")
+    if n_shards == 1 and torch.equal(f[3], kp):
+        raise AssertionError(f"K1 wrote nothing: {what}")
+    return f
+
+
+def check_case(x, n_shards, window, err):
+    """Every emulated shard of one input set; row 1 is empty and must come
+    out exactly (acc, m, l) = (0, -1e30, 0)."""
+    what = (f"{x['kp'].dtype} G={x['group']} D={x['q'].shape[2]} "
             f"slots={x['kp'].shape[1]} S={n_shards} window={window}")
     for sid in range(n_shards):
-        meta = (sid, n_shards, 0)
-        kp = x["kp"][sid::n_shards].contiguous()
-        vp = x["vp"][sid::n_shards].contiguous()
-        kp_k, vp_k = kp.clone(), vp.clone()
-        kp_p, vp_p = kp.clone(), vp.clone()
-        args = (x["bt"], x["lengths"], x["fr"], x["wm"], meta)
-        K.paged_kv_write(x["k_new"], x["v_new"], kp_k, vp_k, *args)
-        K.kv_write_plain(x["k_new"], x["v_new"], kp_p, vp_p, *args)
-        torch.cuda.synchronize()
-        if not (torch.equal(kp_k, kp_p) and torch.equal(vp_k, vp_p)):
-            raise AssertionError(f"K1 pages differ from plain: {what} sid={sid}")
-        out_k = K.paged_gather_attend(x["q"], kp_k, vp_k, x["bt"],
-                                      x["lengths"], meta, window=window)
-        out_p = K.gather_attend_plain(x["q"], kp_p, vp_p, x["bt"],
-                                      x["lengths"], meta, window=window)
-        torch.cuda.synchronize()
-        for name, a, r in zip("acc m l".split(), out_k, out_p):
-            dlt = (a - r).abs()
-            e = dlt.max().item()
-            err["k2"] = max(err["k2"], e)
-            tol = M_ATOL if name == "m" else K2_ATOL + K2_RTOL * r.abs()
-            if not bool((dlt <= tol).all()):
-                raise AssertionError(f"K2 {name} differs from plain by {e}: "
-                                     f"{what} sid={sid}")
-        acc, m, l = (o[1] for o in out_k)      # row 1 is empty
+        acc, m, l = (o[1] for o in check_shard(x, sid, n_shards, window, True,
+                                               err, what)[:3])
         if not (bool((m == -1e30).all()) and bool((l == 0).all())
                 and bool((acc == 0).all())):
             raise AssertionError(f"K2: empty row is not (-1e30, 0, 0): {what}")
-    if n_shards == 1 and torch.equal(kp_k, kp):
-        raise AssertionError(f"K1 wrote nothing: {what}")
 
 
 #: other head groups, head dims and page sizes the kernels take: (G, D,
@@ -264,37 +280,12 @@ OTHER_SHAPES = [(1, 64, 4, 16), (3, 80, 8, 8), (4, 256, 256, 2),
 def check_identity_tables(dev, err):
     """Without VM tables (the fixed layout: sequence b owns frames
     b*max_pages..) the fused path synthesizes identity tables; it must agree
-    with the composed oracle's arithmetic mapping (f32, lengths >= 1)."""
+    with the composed oracle's arithmetic mapping (f32, lengths >= 1, since
+    the oracle's length-0 row wraps to the previous sequence's last page)."""
     import torch
-    from repro_torch.kernels.paged_decode import ops
-    rng = np.random.default_rng(29)
-    max_pages = 4
-    lengths = torch.tensor(rng.integers(1, max_pages * PS + 1, B),
-                           dtype=torch.int32, device=dev)
-
-    def t(*shape):
-        return torch.tensor(rng.normal(size=shape).astype(np.float32),
-                            device=dev)
-    q, k_new, v_new = t(B, HKV * G, D), t(B, HKV, D), t(B, HKV, D)
-    kp, vp = t(B * max_pages, PS, HKV, D), t(B * max_pages, PS, HKV, D)
-    wm = torch.ones(B, dtype=torch.bool, device=dev)
-    outs = {}
-    for impl in ("fused", "composed"):
-        outs[impl] = ops.paged_decode_shard(
-            q, k_new, v_new, kp.clone(), vp.clone(), lengths, None, None,
-            None, wm, sid=0, n_shards=1, head_start=0, group=G, window=None,
-            max_pages=max_pages, use_vm=False, impl=impl)
-    torch.cuda.synchronize()
-    f, c = outs["fused"], outs["composed"]
-    if not (torch.equal(f[3], c[3]) and torch.equal(f[4], c[4])):
-        raise AssertionError("identity tables: fused pages differ from composed")
-    for name, a, r in zip("acc m l".split(), f[:3], c[:3]):
-        dlt = (a - r).abs()
-        err["k2"] = max(err["k2"], dlt.max().item())
-        tol = M_ATOL if name == "m" else K2_ATOL + K2_RTOL * r.abs()
-        if not bool((dlt <= tol).all()):
-            raise AssertionError(f"identity tables: fused {name} differs from "
-                                 f"composed by {dlt.max().item()}")
+    x = kernel_case(29, torch.float32, dev, max_lp=4)
+    x["lengths"] = torch.tensor(np.maximum(x["lengths_np"], 1), device=dev)
+    check_shard(x, 0, 1, None, False, err, "identity tables")
 
 
 def phase_kernels(dev):
@@ -322,14 +313,17 @@ def time_kernels(x):
     past the 50 MB L2), since the serving path finds each layer's pages cold."""
     import torch
     from repro_torch.kernels.paged_decode import kernel as K
+    from repro_torch.kernels.paged_decode import ref
     meta = (0, 1, 0)
+    shard = dict(sid=0, n_shards=1, max_pages=MAX_LP)
     kp, vp = x["kp"].clone(), x["vp"].clone()
-    args = (x["bt"], x["lengths"], x["fr"], x["wm"], meta)
     out = {}
     out["k1"] = timed(lambda: K.paged_kv_write(
-        x["k_new"], x["v_new"], kp, vp, *args))
-    out["k1_plain"] = timed(lambda: K.kv_write_plain(
-        x["k_new"], x["v_new"], kp, vp, *args))
+        x["k_new"], x["v_new"], kp, vp, x["bt"], x["lengths"], x["fr"],
+        x["wm"], meta))
+    out["k1_plain"] = timed(lambda: ref.write_kv(
+        x["k_new"], x["v_new"], kp, vp, x["lengths"], x["bt"], x["fr"],
+        x["wm"], **shard))
     # library: index_put_ of the precomputed (row, slot) targets, K and V
     ln = x["lengths_np"]
     sel = [b for b in range(B) if x["wm_np"][b] and ln[b] > 0
@@ -346,14 +340,18 @@ def time_kernels(x):
     out["k1_library"] = timed(library)
     pools = [(x["kp"].clone(), x["vp"].clone()) for _ in range(8)]
     it = itertools.count()
+    qg = x["q"].reshape(B, HKV, G, D)
 
-    def k2(fn):
-        def call():
-            p = pools[next(it) % len(pools)]
-            fn(x["q"], p[0], p[1], x["bt"], x["lengths"], meta)
-        return call
-    out["k2"] = timed(k2(K.paged_gather_attend))
-    out["k2_plain"] = timed(k2(K.gather_attend_plain), iters=20)
+    def k2():
+        p = pools[next(it) % len(pools)]
+        K.paged_gather_attend(qg, p[0], p[1], x["bt"], x["lengths"], meta)
+
+    def k2_plain():
+        p = pools[next(it) % len(pools)]
+        ref.attend_shard(x["q"], p[0], p[1], x["lengths"], x["bt"], x["fl"],
+                         head_start=0, group=G, window=None, **shard)
+    out["k2"] = timed(k2)
+    out["k2_plain"] = timed(k2_plain, iters=20)
     b1 = k1_bytes(x, 1, 0)
     b2, ops2 = k2_work(x, 1, 0, None)
     out["k1_bound_ms"] = b1 / HBM_BYTES_PER_S * 1e3
@@ -410,7 +408,7 @@ def phase_teacher(dev, dtype: str, steps: int = 64):
         caches[impl] = c
     start = np.arange(B) * 4
     toks = rng.integers(0, cfg.vocab_size, (steps + int(start[-1]), B))
-    max_diff = max_ref = 0.0
+    max_diff = max_ref = early_diff = 0.0
     agree = total = 0
     with torch.no_grad():
         for k in range(steps + int(start[-1])):
@@ -429,6 +427,8 @@ def phase_teacher(dev, dtype: str, steps: int = 64):
             a, r = outs["auto"][live], outs["composed"][live]
             max_diff = max(max_diff, (a - r).abs().max().item())
             max_ref = max(max_ref, r.abs().max().item())
+            if k < 8:                  # before cache differences build up
+                early_diff = max_diff
             agree += int((a.argmax(-1) == r.argmax(-1)).sum().item())
             total += int(live.sum().item())
     rel = max_diff / max_ref
@@ -440,6 +440,7 @@ def phase_teacher(dev, dtype: str, steps: int = 64):
     torch.cuda.empty_cache()
     return {"dtype": dtype, "max_abs_diff": max_diff, "max_abs_logit": max_ref,
             "rel": rel, "rtol": LOGIT_RTOL[dtype],
+            "rel_first_8_steps": early_diff / max_ref,
             "argmax_agree": f"{agree}/{total}"}
 
 

@@ -322,6 +322,8 @@ extern "C" int paged_gather_attend(const void* q, const void* k_pages,
                                    int np_loc, int sid, int n_shards,
                                    int kv_start, int window, float scale,
                                    int q_dtype, int kv_dtype, void* stream) {
+  // the one check of K2's shape limits: the wrapper reports
+  // cudaErrorInvalidValue as a head_dim or group the kernel does not take
   if (D < 1 || D > 256 || G < 1) return (int)cudaErrorInvalidValue;
   const int wph = G >= kAttendWarps ? 1 : kAttendWarps / G;
   const int smem_bytes = (int)sizeof(float) * G * wph * (D + 2);

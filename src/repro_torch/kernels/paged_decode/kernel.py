@@ -1,4 +1,4 @@
-"""VM-walking paged-decode kernels: build, binding, wrappers, plain versions.
+"""VM-walking paged-decode kernels: build, binding, wrappers.
 
 The CUDA sources (``csrc/paged_decode.cu``) hold two kernels, the WRITE and
 READ halves of the emulated-memory protocol.  Both walk the BlockManager's
@@ -21,11 +21,12 @@ translation rides the memory access instead of a host-side owner mask:
 ``meta`` is ``(sid, n_shards, kv_start)``: the shard this call plays, the
 number of shards frames are spread over, and the first KV head of ``q``.
 
-A wrapper given CUDA tensors launches its kernel on the current stream
-(building the library with ``nvcc`` at first use) and adds one to
-``LAUNCHES[name]``; any failure raises.  Given CPU tensors it runs the
-kernel's plain PyTorch version (:func:`kv_write_plain`,
-:func:`gather_attend_plain`), which computes what the kernel computes.
+A wrapper launches its kernel on the current stream (building the library
+with ``nvcc`` at first use) and adds one to ``LAUNCHES[name]``; any failure
+raises, and so do CPU tensors: a CUDA kernel has no interpret mode.  The
+plain versions the kernels are held against are
+:func:`repro_torch.kernels.paged_decode.ref.write_kv` and
+:func:`~repro_torch.kernels.paged_decode.ref.attend_shard`.
 """
 from __future__ import annotations
 
@@ -35,8 +36,6 @@ import shutil
 from pathlib import Path
 
 import torch
-
-NEG_INF = -1e30
 
 #: launches per kernel wrapper since the last :func:`reset_launch_counts`
 LAUNCHES = {"paged_kv_write": 0, "paged_gather_attend": 0}
@@ -50,8 +49,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_LIMIT = 48 * 1024        # dynamic shared memory without opt-in
-_ATTEND_WARPS = 8              # kAttendWarps in the source
+_CUDA_ERROR_INVALID_VALUE = 1
 _lib = None
 
 
@@ -162,30 +160,6 @@ def _meta(meta) -> tuple[int, int, int]:
 
 # -- K1: WRITE ----------------------------------------------------------------------
 
-def kv_write_plain(k_new, v_new, k_pages, v_pages, block_table, lengths,
-                   frame_ro, write_mask, meta):
-    """Plain PyTorch version of K1, same arguments and drops; updates the
-    pages in place and returns them."""
-    sid, n_shards, _ = _meta(meta)
-    b = k_new.shape[0]
-    np_loc, slots = k_pages.shape[0], k_pages.shape[1]
-    max_lpages, n_frames = block_table.shape[1], frame_ro.shape[0]
-    live = lengths > 0
-    pidx = torch.div(lengths - 1, slots, rounding_mode="floor")
-    in_table = live & (pidx < max_lpages)
-    rows_b = torch.arange(b, device=lengths.device)
-    f = block_table[rows_b, torch.where(in_table, pidx, 0)].long()
-    mapped = (f >= 0) & (f < n_frames)
-    ro = frame_ro[f.clamp(0, n_frames - 1)]
-    ok = (write_mask & in_table & mapped & ~ro & (f % n_shards == sid)
-          & (torch.div(f, n_shards, rounding_mode="floor") < np_loc))
-    rows = torch.div(f, n_shards, rounding_mode="floor")[ok]
-    off = ((lengths - 1) % slots)[ok]
-    k_pages.index_put_((rows, off), k_new[ok].to(k_pages.dtype))
-    v_pages.index_put_((rows, off), v_new[ok].to(v_pages.dtype))
-    return k_pages, v_pages
-
-
 def paged_kv_write(k_new, v_new, k_pages, v_pages, block_table, lengths,
                    frame_ro, write_mask, meta):
     """K1.  k_new/v_new: [B, Hkv, D]; k/v_pages: [np_loc, slots, Hkv, D]
@@ -193,9 +167,6 @@ def paged_kv_write(k_new, v_new, k_pages, v_pages, block_table, lengths,
     [B, max_lpages] GLOBAL frame ids; lengths: int32 [B] including the new
     token; frame_ro: bool [n_frames]; write_mask: bool [B]; meta:
     (sid, n_shards, kv_start).  Returns (k_pages, v_pages)."""
-    if k_pages.device.type == "cpu":
-        return kv_write_plain(k_new, v_new, k_pages, v_pages, block_table,
-                              lengths, frame_ro, write_mask, meta)
     dev = _check_cuda(k_new=k_new, v_new=v_new, k_pages=k_pages,
                       v_pages=v_pages, block_table=block_table,
                       lengths=lengths, frame_ro=frame_ro,
@@ -235,44 +206,6 @@ def paged_kv_write(k_new, v_new, k_pages, v_pages, block_table, lengths,
 
 # -- K2: READ + attend ------------------------------------------------------------
 
-def gather_attend_plain(q, k_pages, v_pages, block_table, lengths, meta, *,
-                        scale=None, window=None):
-    """Plain PyTorch version of K2: gathers every block-table page this
-    shard owns and runs a single-max softmax over the valid positions."""
-    sid, n_shards, kv_start = _meta(meta)
-    b, hkv_loc, g, d = q.shape
-    np_loc, slots = k_pages.shape[0], k_pages.shape[1]
-    max_lpages = block_table.shape[1]
-    scale = d ** -0.5 if scale is None else scale
-    f = block_table.long()
-    row = torch.div(f, n_shards, rounding_mode="floor")
-    owned = (f >= 0) & (f % n_shards == sid) & (row < np_loc)
-    rows = torch.where(owned, row, 0)                       # [B, max_lpages]
-    heads = slice(kv_start, kv_start + hkv_loc)
-    k = k_pages[rows][:, :, :, heads].float().reshape(b, -1, hkv_loc, d)
-    v = v_pages[rows][:, :, :, heads].float().reshape(b, -1, hkv_loc, d)
-    pos = (torch.arange(max_lpages, device=q.device)[:, None] * slots
-           + torch.arange(slots, device=q.device)[None, :])
-    valid = owned[:, :, None] & (pos[None] < lengths[:, None, None])
-    if window is not None:
-        valid &= pos[None] >= (lengths[:, None, None] - window)
-    valid = valid.reshape(b, 1, 1, -1)
-    s = torch.einsum("bhgd,bthd->bhgt", q.float(), k) * scale
-    s = torch.where(valid, s, NEG_INF)
-    m = s.amax(-1, keepdim=True)
-    p = torch.where(valid, torch.exp(s - m), 0.0)
-    l = p.sum(-1, keepdim=True)
-    acc = torch.einsum("bhgt,bthd->bhgd", p, v)
-    return acc, m, l
-
-
-def attend_smem_bytes(g: int, d: int) -> int:
-    """K2's shared memory: one (acc[D], m, l) record per warp of a head
-    (8 warps per block, split over the G heads of the group)."""
-    warps_per_head = 1 if g >= _ATTEND_WARPS else _ATTEND_WARPS // g
-    return 4 * g * warps_per_head * (d + 2)
-
-
 def paged_gather_attend(q, k_pages, v_pages, block_table, lengths, meta, *,
                         scale=None, window=None):
     """K2.  q: [B, Hkv_loc, G, D] (whole KV-head groups); k/v_pages:
@@ -280,9 +213,6 @@ def paged_gather_attend(q, k_pages, v_pages, block_table, lengths, meta, *,
     ids; meta: (sid, n_shards, kv_start) with kv_start the first KV head of
     q.  Returns UNNORMALISED (acc [B, Hkv_loc, G, D], m [B, Hkv_loc, G, 1],
     l [B, Hkv_loc, G, 1]), all f32."""
-    if k_pages.device.type == "cpu":
-        return gather_attend_plain(q, k_pages, v_pages, block_table, lengths,
-                                   meta, scale=scale, window=window)
     dev = _check_cuda(q=q, k_pages=k_pages, v_pages=v_pages,
                       block_table=block_table, lengths=lengths)
     sid, n_shards, kv_start = _meta(meta)
@@ -300,9 +230,6 @@ def paged_gather_attend(q, k_pages, v_pages, block_table, lengths, meta, *,
     kv_code = _check_dtype(k_pages, "k_pages")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    if not 1 <= d <= 256 or g < 1 or attend_smem_bytes(g, d) > _SMEM_LIMIT:
-        raise ValueError(f"K2 takes head_dim <= 256 and group sizes whose "
-                         f"records fit 48 KB, got D={d}, G={g}")
     scale = d ** -0.5 if scale is None else float(scale)
     acc = torch.empty((b, hkv_loc, g, d), dtype=torch.float32, device=dev)
     m = torch.empty((b, hkv_loc, g, 1), dtype=torch.float32, device=dev)
@@ -319,6 +246,11 @@ def paged_gather_attend(q, k_pages, v_pages, block_table, lengths, meta, *,
             block_table.shape[1], hkv, np_loc, sid, n_shards, kv_start,
             0 if window is None else int(window), scale, q_code, kv_code,
             stream)
+    if err == _CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(
+            f"paged_gather_attend refused D={d}, G={g} (CUDA error {err}): "
+            "the kernel takes head_dim 1..256 and groups whose per-warp "
+            "softmax records fit 48 KB of shared memory (csrc/paged_decode.cu)")
     if err:
         raise RuntimeError(f"paged_gather_attend launch failed: CUDA error {err}")
     LAUNCHES["paged_gather_attend"] += 1

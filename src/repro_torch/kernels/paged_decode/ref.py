@@ -5,7 +5,9 @@ One shard's worth of the paged decode step, written as plain torch over
 host-style owner masks: :func:`write_target` (frame lookup + ``frame_ro``
 write drop), :func:`owner_mask` (frame-membership test per physical page)
 and a single-max softmax over every owned token.  This is the reference the
-CUDA kernels are held against, and the path the CPU runs.
+CUDA kernels are held against -- :func:`write_kv` is ``paged_kv_write``'s
+plain version, :func:`attend_shard` ``paged_gather_attend``'s -- and the
+path the CPU runs.
 
 All functions are per-shard: they see the local page arrays plus the
 (replicated) VM tables and the shard's identity.  ``bt is None`` selects
@@ -84,6 +86,36 @@ def partial_attend(q, k_pages, v_pages, lengths, *, owner, lpage,
     return acc, m, l
 
 
+def write_kv(k_new, v_new, k_pages, v_pages, lengths, bt, fr, wm, *, sid,
+             n_shards, max_pages):
+    """WRITE half (the plain version of the ``paged_kv_write`` kernel):
+    scatter each sequence's new K/V row into its owning shard's page, IN
+    PLACE.  Rows that do not write are masked out, never indexed with a
+    sentinel.  Returns (k_pages, v_pages)."""
+    b, slots = k_new.shape[0], k_pages.shape[1]
+    pidx = torch.div(lengths - 1, slots, rounding_mode="floor")
+    gpage, ok = write_target(bt, fr, wm, pidx, b, max_pages)
+    sel = ok & (gpage % n_shards == sid)
+    rows = torch.div(gpage, n_shards, rounding_mode="floor")
+    off = (lengths - 1) % slots
+    k_pages.index_put_((rows[sel], off[sel]), k_new[sel].to(k_pages.dtype))
+    v_pages.index_put_((rows[sel], off[sel]), v_new[sel].to(v_pages.dtype))
+    return k_pages, v_pages
+
+
+def attend_shard(q, k_pages, v_pages, lengths, bt, fl, *, sid, n_shards,
+                 head_start, group, window, max_pages):
+    """READ half (the plain version of the ``paged_gather_attend`` kernel):
+    partial attention of q over the pages this shard owns.  Returns
+    (acc [B, Hl, hd] unnormalized, m [B, Hl], l [B, Hl]), f32."""
+    g_all = shard_frames(torch.arange(k_pages.shape[0], device=q.device),
+                         sid, n_shards)
+    owner, lpage = owner_mask(bt, fl, g_all, q.shape[0], max_pages)
+    return partial_attend(q, k_pages, v_pages, lengths, owner=owner,
+                          lpage=lpage, head_start=head_start, group=group,
+                          window=window)
+
+
 def paged_decode_shard(q, k_new, v_new, k_pages, v_pages, lengths, bt, fl,
                        fr, wm, *, sid, n_shards, head_start, group, window,
                        max_pages, use_vm):
@@ -92,23 +124,11 @@ def paged_decode_shard(q, k_new, v_new, k_pages, v_pages, lengths, bt, fl,
     PLACE (the reference returns new arrays) and returned.  Returns
     (acc, m, l, k_pages, v_pages) with ``acc`` unnormalized so the caller
     can merge across shards."""
-    b = q.shape[0]
-    np_loc, slots = k_pages.shape[0], k_pages.shape[1]
     bt_ = bt if use_vm else None
     fl_ = fl if use_vm else None
-    # WRITE: scatter the new K/V row into its owning shard's page.  Rows
-    # that do not write are masked out, never indexed with a sentinel.
-    pidx = torch.div(lengths - 1, slots, rounding_mode="floor")
-    gpage, ok = write_target(bt_, fr, wm, pidx, b, max_pages)
-    sel = ok & (gpage % n_shards == sid)
-    rows = torch.div(gpage, n_shards, rounding_mode="floor")
-    off = (lengths - 1) % slots
-    k_pages.index_put_((rows[sel], off[sel]), k_new[sel].to(k_pages.dtype))
-    v_pages.index_put_((rows[sel], off[sel]), v_new[sel].to(v_pages.dtype))
-    # READ/compute: partial attention over owned pages
-    g_all = shard_frames(torch.arange(np_loc, device=q.device), sid, n_shards)
-    owner, lpage = owner_mask(bt_, fl_, g_all, b, max_pages)
-    acc, m, l = partial_attend(q, k_pages, v_pages, lengths, owner=owner,
-                               lpage=lpage, head_start=head_start,
-                               group=group, window=window)
+    write_kv(k_new, v_new, k_pages, v_pages, lengths, bt_, fr, wm, sid=sid,
+             n_shards=n_shards, max_pages=max_pages)
+    acc, m, l = attend_shard(q, k_pages, v_pages, lengths, bt_, fl_, sid=sid,
+                             n_shards=n_shards, head_start=head_start,
+                             group=group, window=window, max_pages=max_pages)
     return acc, m, l, k_pages, v_pages
