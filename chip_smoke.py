@@ -4,13 +4,14 @@
     python3 chip_smoke.py            # from the repository root
 
 Builds the port's CUDA kernels from ``src/repro_torch`` and drives the
-port's main serving path at the full width of qwen3-0.6b (random weights
-from a seed), in five phases and a profile, each printing one JSON line
-with its seconds:
+port's serving paths at the full width of qwen3-0.6b (random weights from a
+seed): the pooled KV memory (K1, K2), full-sequence prefill (K3) and the
+batch KV layout (K4).  Each phase prints one JSON line with its seconds:
 
-1. build      -- nvcc builds the paged-decode kernels (K1 paged_kv_write,
-                 K2 paged_gather_attend) from the checkout's sources;
-2. kernels    -- each kernel against its plain PyTorch version (the
+1. build      -- nvcc builds the three kernel libraries from the checkout's
+                 sources, all at once: paged decode (K1 paged_kv_write, K2
+                 paged_gather_attend), K3 flash_attention, K4 flash_decode;
+2. kernels    -- K1 and K2 each against its plain PyTorch version (the
                  composed oracle, ``kernels/paged_decode/ref.py``) at the
                  main path's shapes (f32 and bf16, 1 and 2 emulated shards,
                  window None and 64) and at other head groups, head dims
@@ -26,7 +27,21 @@ with its seconds:
                  swap preemption and prefix sharing happen, and every decode
                  step of every layer launched both kernels;
 5. tokens     -- the same trace in f32 gives identical per-uid tokens with
-                 the kernels and with the composed oracle.
+                 the kernels and with the composed oracle;
+6. flash      -- K3 against ref.mha and K4 against the plain branch of
+                 flash_ops.decode_attention_partial, at the prefill and
+                 batch-serving shapes (f32 and bf16, windows None and 64,
+                 tail queries, head groups 1, 2 and 4, head dims 64 and 128,
+                 S = 200), with kernel / plain / library / bound times;
+7. prefill    -- full-width Model.prefill of 8 prompts of 511 tokens with
+                 the kernel (attn_impl "pallas") and with the plain oracle
+                 ("ref"), f32 and bf16: logits and K/V cache agree, and in
+                 f32 prefill(510) plus one batch-layout decode step (K4)
+                 reproduces prefill(511)'s logits;
+8. batch      -- the full-width engine + scheduler serve the phase-4 trace
+                 on the batch KV layout with attn_impl "pallas": in bf16
+                 every decode step of every layer launched K4; in f32 the
+                 per-uid tokens equal the plain path's.
 
 Then it prints the kernels' JSON line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -51,6 +66,7 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
 
 # phase 2 shapes: the main path's (qwen3-0.6b: 8 KV heads of 128, 2 query
 # heads per KV head; 16-slot pages; 8 slots x 512 tokens of table)
@@ -65,6 +81,15 @@ K2_RTOL, K2_ATOL, M_ATOL = 1e-5, 1e-5, 1e-5
 # attention output that lands on the other side of a tie moves a logit by
 # ~2^-8 of its size, and 28 layers and 64 steps of cache carry it on)
 LOGIT_RTOL = {"float32": 1e-3, "bfloat16": 5e-2}
+# phase 6, kernel against plain (both compute in f32 from the same inputs,
+# summing in another order): f32 outputs within atol 1e-5 + rtol 1e-5;
+# bf16 outputs within atol 1e-5 plus one bf16 rounding step (2^-7 of |x|),
+# since both round an f32 result that may differ in its last bits; K4's m
+# within atol 1e-5 and l within rtol 1e-5 + atol 1e-5
+FLASH_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+FLASH_ATOL = 1e-5
+# phase 7: 8 prompts of 511 tokens into a 512-position batch cache
+PREFILL_B, PREFILL_S, PREFILL_MAX_LEN = 8, 511, 512
 
 SERVE_ENGINE = dict(slots=8, max_len=512, max_fused_steps=8, retain_frames=16)
 # 32 frames of 16 slots: a 194-token prompt with 48 new tokens needs 16
@@ -126,12 +151,41 @@ def device_profile(fn, iters: int = 20, warmup: int = 3):
     return total / iters / 1e3, out
 
 
+def queued_ms(fn, iters: int = 50, warmup: int = 5):
+    """Device time per call of ``fn()``: CUDA events around ``iters`` calls
+    queued behind a ~25 ms sleep kernel, so that the device runs them back
+    to back whatever the host's launch overhead.  None when the device
+    reached the first event before the host had queued every call (``fn``
+    synchronises with the host, or the host is slower than the sleep)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    late = start.query()
+    torch.cuda.synchronize()
+    return None if late else start.elapsed_time(end) / iters
+
+
 def timed(fn, iters: int = 50) -> dict:
-    """Both clocks for one function: the profiler's device time per call
-    and the CUDA-event time per call of a loop of calls (which is the
-    Python wrapper's time when a call is shorter than its wrapper)."""
-    dev_ms, _ = device_profile(fn, iters=min(iters, 20))
-    return {"device_ms": dev_ms, "loop_ms": cuda_ms(fn, iters=iters)}
+    """A function's device time per call (``device_ms``): the queued-event
+    clock, or the profiler's device time where ``fn`` synchronises with the
+    host; beside it every clock read (the profiler's, which under-counted
+    long kernels in some runs, and the CUDA-event time of a plain loop of
+    calls, which is the Python wrapper's time when a call is shorter than
+    its wrapper)."""
+    queued = queued_ms(fn, iters=iters)
+    prof_ms, _ = device_profile(fn, iters=min(iters, 20))
+    return {"device_ms": queued if queued is not None else prof_ms,
+            "clock": "events" if queued is not None else "profiler",
+            "queued_ms": queued, "profiler_ms": prof_ms,
+            "loop_ms": cuda_ms(fn, iters=iters)}
 
 
 def mk_vm(rng, b, max_lp, ps, lengths, shared_page0):
@@ -365,10 +419,12 @@ def time_kernels(x):
 # -- phase 3 -------------------------------------------------------------------
 
 def full_cfg(dtype: str, **kw):
+    """qwen3-0.6b at full width in ``dtype``; pooled 16-slot pages unless
+    ``kw`` says otherwise."""
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config("qwen3-0.6b"), kv_layout="pooled",
-                               kv_page_slots=16, param_dtype=dtype,
-                               compute_dtype=dtype, **kw)
+    base = dict(kv_layout="pooled", kv_page_slots=16, param_dtype=dtype,
+                compute_dtype=dtype)
+    return dataclasses.replace(get_config("qwen3-0.6b"), **{**base, **kw})
 
 
 def phase_teacher(dev, dtype: str, steps: int = 64):
@@ -446,14 +502,15 @@ def phase_teacher(dev, dtype: str, steps: int = 64):
 
 # -- phases 4 and 5 --------------------------------------------------------------
 
-def serve(dev, dtype: str, paged_kernel: str = "auto"):
-    """Replay the trace through the full-width engine; returns (per-uid
-    outputs, shutdown stats, seconds)."""
+def serve(dev, dtype: str, **cfg_kw):
+    """Replay the trace through the full-width engine (pooled layout unless
+    ``cfg_kw`` says otherwise); returns (per-uid outputs, shutdown stats,
+    seconds)."""
     import torch
     from repro_torch.models.model import Model
     from repro_torch.serve import (EngineConfig, Scheduler, ServeEngine,
                                    TraceConfig, generate, replay)
-    cfg = full_cfg(dtype, kv_pool_pages=SERVE_POOL, paged_kernel=paged_kernel)
+    cfg = full_cfg(dtype, **{"kv_pool_pages": SERVE_POOL, **cfg_kw})
     model = Model(cfg, device=dev, seed=0)
     torch.cuda.synchronize()
     t0 = time.monotonic()
@@ -507,8 +564,8 @@ def phase_serve(dev):
 
 
 def phase_tokens(dev):
-    kern, st_k, dt_k = serve(dev, "float32", "auto")
-    comp, st_c, dt_c = serve(dev, "float32", "composed")
+    kern, st_k, dt_k = serve(dev, "float32", paged_kernel="auto")
+    comp, st_c, dt_c = serve(dev, "float32", paged_kernel="composed")
     if kern != comp:
         bad = sorted(u for u in kern if kern[u] != comp.get(u))
         raise AssertionError(f"f32 served tokens differ, kernels vs composed, "
@@ -520,30 +577,41 @@ def phase_tokens(dev):
             "kernels_s": dt_k, "composed_s": dt_c}
 
 
-def phase_profile(dev, steps: int = 10):
+#: each wrapper's CUDA kernel, by the symbol the profiler reports
+KERNEL_SYMBOLS = {"paged_kv_write": "kv_write_kernel",
+                  "paged_gather_attend": "gather_attend_kernel",
+                  "flash_attention": "fa_kernel",
+                  "flash_decode": "flash_decode_kernel"}
+
+
+def phase_profile(dev, layout: str, steps: int = 10):
     """Where a decode step's time goes: full-width bf16 decode of 8
-    sequences at ~256 tokens over scrambled tables, each step synced to the
-    host as the engine's stepwise path does.  Wall time per step (no
-    profiler), then device time per step by kernel from torch.profiler."""
+    sequences at ~256 tokens (pooled: over scrambled tables, K1/K2; batch:
+    attn_impl "pallas", K4), each step synced to the host as the engine's
+    stepwise path does.  Wall time per step (no profiler), then device time
+    per step by kernel from torch.profiler."""
     import torch
     from repro_torch.models.model import Model
     from repro_torch.serve.fused_decode import sampled_decode_step
-    model = Model(full_cfg("bfloat16"), device=dev, seed=0)
+    cfg = (full_cfg("bfloat16") if layout == "pooled" else
+           full_cfg("bfloat16", kv_layout="batch", attn_impl="pallas"))
+    model = Model(cfg, device=dev, seed=0)
     cache = model.init_cache(B, MAX_LP * PS)
     rng = np.random.default_rng(5)
     start = 256
-    bt, fl, fr = mk_vm(rng, B, MAX_LP, PS, [MAX_LP * PS] * B, False)
-    cache["vm"] = {"block_table": torch.tensor(bt, device=dev),
-                   "frame_lpage": torch.tensor(fl, device=dev),
-                   "frame_ro": torch.tensor(fr, device=dev)}
+    if layout == "pooled":
+        bt, fl, fr = mk_vm(rng, B, MAX_LP, PS, [MAX_LP * PS] * B, False)
+        cache["vm"] = {"block_table": torch.tensor(bt, device=dev),
+                       "frame_lpage": torch.tensor(fl, device=dev),
+                       "frame_ro": torch.tensor(fr, device=dev)}
     wm = torch.ones(B, dtype=torch.bool, device=dev)
     pos = itertools.count(start)
 
     def step():
         n = next(pos)
         lengths = torch.full((B,), n, dtype=torch.int32, device=dev)
-        tok = torch.tensor(rng.integers(0, 151936, (B, 1)), dtype=torch.int32,
-                           device=dev)
+        tok = torch.tensor(rng.integers(0, cfg.vocab_size, (B, 1)),
+                           dtype=torch.int32, device=dev)
         sampled, _, _ = sampled_decode_step(model, tok, cache, lengths, wm)
         return sampled.cpu()
 
@@ -557,27 +625,328 @@ def phase_profile(dev, steps: int = 10):
     dev_ms, by_name = device_profile(step, iters=steps, warmup=0)
     del model, cache
     torch.cuda.empty_cache()
-    out = {"wall_ms_per_step": wall_ms, "device_ms_per_step": dev_ms}
+    out = {"layout": layout, "wall_ms_per_step": wall_ms,
+           "device_ms_per_step": dev_ms}
     if dev_ms is None:
         return out
     ops = by_name.pop("device_ops_per_call")
-    k1 = sum(v for k, v in by_name.items() if "kv_write_kernel" in k)
-    k2 = sum(v for k, v in by_name.items() if "gather_attend_kernel" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     out.update(busy_share=dev_ms / wall_ms, device_ops_per_step=ops,
-               k1_ms_per_step=k1,
-               k2_ms_per_step=k2,
+               kernel_ms_per_step={
+                   name: sum(v for k, v in by_name.items() if sym in k)
+                   for name, sym in KERNEL_SYMBOLS.items()},
                top_kernels_ms_per_step=[[k[:80], v] for k, v in top])
     return out
 
 
+# -- phase 6 -------------------------------------------------------------------
+
+def close(got, want, dtype: str, what: str, err: dict, key: str):
+    """``got`` within the phase-6 tolerance of ``want``; folds the max
+    error into ``err[key]``."""
+    dlt = (got.float() - want.float()).abs()
+    e = dlt.max().item() if dlt.numel() else 0.0
+    err[key] = max(err[key], e)
+    tol = FLASH_ATOL + FLASH_RTOL[dtype] * want.float().abs()
+    if not bool((dlt <= tol).all()):
+        raise AssertionError(f"{key} differs from plain by {e}: {what}")
+
+
+def fa_case(seed, dtype, dev, b=8, hq=16, hkv=8, sq=512, skv=512, d=128):
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape).astype(np.float32),
+                            device=dev).to(dtype)
+    return t(b, hq, sq, d), t(b, hkv, skv, d), t(b, hkv, skv, d)
+
+
+def check_k3(q, k, v, causal, window, err):
+    """K3 against ref.mha on one input set."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.flash_attention import ref
+    out = K3.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.mha(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    dtype = str(q.dtype).split(".")[1]
+    close(out, want, dtype, f"{dtype} q {tuple(q.shape)} k {tuple(k.shape)} "
+          f"causal={causal} window={window}", err, "k3")
+
+
+def fd_case(seed, dtype, dev, g=G, d=D, s=512, b=B, hkv=HKV):
+    """K4 inputs: q [B, Hkv*G, D], k/v [B, Hkv, S, D], ragged lengths with
+    an empty row and a one-token row."""
+    import torch
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(2, s + 1, b).astype(np.int32)
+    lengths[1], lengths[2] = 0, 1
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape).astype(np.float32),
+                            device=dev).to(dtype)
+    return (t(b, hkv * g, d), t(b, hkv, s, d), t(b, hkv, s, d),
+            torch.tensor(lengths, device=dev), lengths)
+
+
+def check_k4(x, window, err):
+    """K4 (through flash_ops with the kernel) against its plain version, the
+    non-kernel branch of flash_ops.decode_attention_partial: out, m and l;
+    row 1 is empty and must be exactly (0, -1e30, 0)."""
+    import torch
+    from repro_torch.kernels.paged_decode import flash_ops
+    q, k, v, lengths, _ = x
+    kern = flash_ops.decode_attention_partial(q, k, v, lengths, window=window,
+                                              use_kernel=True)
+    plain = flash_ops.decode_attention_partial(q, k, v, lengths,
+                                               window=window, use_kernel=False)
+    torch.cuda.synchronize()
+    dtype = str(q.dtype).split(".")[1]
+    what = (f"{dtype} q {tuple(q.shape)} k {tuple(k.shape)} "
+            f"window={window}")
+    close(kern[0], plain[0], dtype, what, err, "k4")
+    close(kern[1], plain[1], "float32", "m " + what, err, "k4")
+    close(kern[2], plain[2], "float32", "l " + what, err, "k4")
+    if not (bool((kern[0][1] == 0).all()) and bool((kern[1][1] == -1e30).all())
+            and bool((kern[2][1] == 0).all())):
+        raise AssertionError(f"K4: empty row is not (0, -1e30, 0): {what}")
+
+
+def phase_flash(dev):
+    import torch
+    err = {"k3": 0.0, "k4": 0.0}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = fa_case(31, dt, dev)                 # the prefill shapes
+        for causal, window in ((True, None), (True, 64), (False, None)):
+            check_k3(q, k, v, causal, window, err)
+        check_k3(q[:, :, -100:].contiguous(), k, v, True, None, err)  # tail
+        check_k3(q[:, :, -100:].contiguous(), k, v, True, 64, err)
+        for hq, hkv, d in ((8, 8, 128), (16, 4, 128), (16, 8, 64)):
+            check_k3(*fa_case(37, dt, dev, b=2, hq=hq, hkv=hkv, d=d), True,
+                     None, err)
+        for causal in (True, False):
+            check_k3(*fa_case(41, dt, dev, b=2, sq=200, skv=200), causal, 64,
+                     err)
+        x = fd_case(43, dt, dev)                       # the serving shapes
+        for window in (None, 64):
+            check_k4(x, window, err)
+        for g, d, s in ((1, 128, 512), (4, 128, 512), (2, 64, 512),
+                        (2, 128, 200)):
+            for window in (None, 64):
+                check_k4(fd_case(47, dt, dev, g=g, d=d, s=s), window, err)
+    return err, time_flash(dev)
+
+
+def time_flash(dev):
+    """Kernel, plain and library times at the main paths' shapes in bf16:
+    K3 causal at B=8, Hq=16, Hkv=8, S=512, D=128 (the prefill's), K4 at
+    B=8, Hkv=8, G=2, S=512, D=128 with the ragged lengths of phase 6 (the
+    batch serving path's).  Each cycles over copies of its inputs larger
+    than the 50 MB L2 together, as every layer finds its K/V cold."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.paged_decode import flash as K4
+    from repro_torch.kernels.paged_decode import flash_ops
+    out = {}
+    fa = [fa_case(53 + i, torch.bfloat16, dev) for i in range(4)]
+    it = itertools.count()
+
+    def pick(xs):
+        return xs[next(it) % len(xs)]
+    out["k3"] = timed(lambda: K3.flash_attention(*pick(fa), causal=True))
+    out["k3_plain"] = timed(lambda: fa_ref.mha(*pick(fa), causal=True),
+                            iters=20)
+    out["k3_library"] = timed(lambda: F.scaled_dot_product_attention(
+        *pick(fa), is_causal=True, enable_gqa=True))
+    q, k, v = fa[0]
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    pairs = int(np.tril(np.ones((sq, skv), bool), skv - sq).sum()) * b * hq
+    k3_ops = 4 * d * pairs
+    k3_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    fd = [fd_case(59 + i, torch.bfloat16, dev) for i in range(8)]
+    lengths_np = fd[0][4]
+    qg = [(x[0].reshape(B, HKV, G, D), x[1], x[2], x[3]) for x in fd]
+    out["k4"] = timed(lambda: K4.flash_decode(*pick(qg)))
+    out["k4_plain"] = timed(lambda: flash_ops.decode_attention_partial(
+        *pick(fd)[:4], use_kernel=False), iters=20)
+    pos = torch.arange(fd[0][1].shape[2], device=dev)
+    masks = [(pos[None, :] < x[3][:, None].long())[:, None, None, :]
+             for x in fd]
+    lib = [(x[0][:, :, None], x[1], x[2], m) for x, m in zip(fd, masks)]
+
+    def library():
+        q4, k4, v4, mask = pick(lib)
+        F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                       enable_gqa=True)
+    out["k4_library"] = timed(library)
+    es = fd[0][1].element_size()
+    attended = int(np.minimum(lengths_np, fd[0][1].shape[2]).sum())
+    k4_bytes = (2 * attended * HKV * D * es + 2 * B * HKV * G * D * es
+                + 4 * B + 2 * B * HKV * G * 4)
+    k4_ops = 4 * G * D * HKV * attended
+    for name, nbytes, ops, rate in (("k3", k3_bytes, k3_ops, BF16_FLOPS_PER_S),
+                                    ("k4", k4_bytes, k4_ops, F32_FLOPS_PER_S)):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+        out[f"{name}_bound_ms"] = max(t_bytes, t_ops) * 1e3
+        out[f"{name}_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        out[f"{name}_bytes"], out[f"{name}_ops"] = nbytes, ops
+    return out
+
+
+# -- phase 7 -------------------------------------------------------------------
+
+def phase_prefill(dev, dtype: str):
+    """Full-width prefill of 8 prompts of 511 tokens with K3 (attn_impl
+    "pallas") and with the plain oracle ("ref") on the same weights and
+    tokens: logits and K/V cache within LOGIT_RTOL of their largest
+    magnitude (f32 carries correctness; bf16 is a smoke check, as in phase
+    3).  Returns (K3 launches of the timed kernel prefill, results)."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.paged_decode import flash as K4
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
+    cfg = full_cfg(dtype, kv_layout="batch", attn_impl="pallas")
+    model = Model(cfg, device=dev, seed=0)
+    rng = np.random.default_rng(7)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size,
+                                     (PREFILL_B, PREFILL_S)), device=dev)
+    model.prefill({"tokens": toks[:, :16]}, PREFILL_MAX_LEN)   # warm up
+    torch.cuda.synchronize()
+    K3.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill({"tokens": toks}, PREFILL_MAX_LEN)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = K3.LAUNCHES["flash_attention"]
+    if launches != cfg.n_layers:
+        raise AssertionError(f"flash_attention: {launches} launches in one "
+                             f"prefill of {cfg.n_layers} layers")
+    t0 = time.perf_counter()
+    ref_logits, ref_cache = T.prefill(
+        dataclasses.replace(cfg, attn_impl="ref"), model.params,
+        {"tokens": toks}, PREFILL_MAX_LEN, periods=model.periods())
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    rel = {"logits": ((logits - ref_logits).abs().max()
+                      / ref_logits.abs().max()).item()}
+    for key, entry in ref_cache.items():
+        for name, want in entry.items():
+            got = cache[key][name]
+            rel[f"{key}/{name}"] = ((got.float() - want.float()).abs().max()
+                                    / want.float().abs().max()).item()
+    for what, r in rel.items():
+        if not np.isfinite(r) or r > LOGIT_RTOL[dtype]:
+            raise AssertionError(f"prefill {what} ({dtype}): kernel vs plain "
+                                 f"{r} of max |value| > {LOGIT_RTOL[dtype]}")
+    res = {"dtype": dtype, "rel_logits": rel["logits"],
+           "rel_kv_max": max(v for k, v in rel.items() if k != "logits"),
+           "rtol": LOGIT_RTOL[dtype], "prefill_ms": wall_ms,
+           "plain_prefill_ms": plain_ms,
+           "prompt_tokens_per_s": PREFILL_B * PREFILL_S / wall_ms * 1e3,
+           "flash_attention_launches": launches}
+    del cache, ref_cache
+    if dtype == "float32":
+        # prefill(S-1) + one batch-layout decode step (K4) == prefill(S)
+        K4.reset_launch_counts()
+        _, short = model.prefill({"tokens": toks[:, :-1]}, PREFILL_MAX_LEN)
+        lengths = torch.full((PREFILL_B,), PREFILL_S, dtype=torch.int32,
+                             device=dev)
+        dec, _ = model.decode_step(toks[:, -1:].to(torch.int32), short,
+                                   lengths)
+        r = ((dec - logits).abs().max() / logits.abs().max()).item()
+        if not np.isfinite(r) or r > LOGIT_RTOL[dtype] \
+                or K4.LAUNCHES["flash_decode"] != cfg.n_layers:
+            raise AssertionError(f"prefill + decode vs prefill: rel {r}, "
+                                 f"{K4.LAUNCHES['flash_decode']} K4 launches")
+        res["rel_prefill_plus_decode"] = r
+        del short
+    del model
+    torch.cuda.empty_cache()
+    return launches, res
+
+
+# -- phase 8 -------------------------------------------------------------------
+
+def phase_batch(dev):
+    """The phase-4 trace on the batch KV layout: bf16 with the kernels (every
+    decode step of every layer launches K4, and no paged kernel runs), then
+    f32 with the kernels and with the plain path (attn_impl "ref"), whose
+    per-uid tokens and telemetry must be identical."""
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.paged_decode import flash as K4
+    from repro_torch.kernels.paged_decode import kernel as K
+    batch = dict(kv_layout="batch")
+    for mod in (K, K3, K4):
+        mod.reset_launch_counts()
+    outputs, stats, dt = serve(dev, "bfloat16", attn_impl="pallas", **batch)
+    launches = K4.LAUNCHES["flash_decode"]
+    others = {**K.LAUNCHES, **K3.LAUNCHES}
+    n_layers = full_cfg("bfloat16").n_layers
+    if launches == 0 or launches != n_layers * stats["decode_steps"]:
+        raise AssertionError(f"flash_decode: {launches} launches for "
+                             f"{stats['decode_steps']} decode steps")
+    if any(others.values()):
+        raise AssertionError(f"batch serving launched other kernels: {others}")
+    kern, st_k, dt_k = serve(dev, "float32", attn_impl="pallas", **batch)
+    plain, st_p, dt_p = serve(dev, "float32", attn_impl="ref", **batch)
+    if kern != plain:
+        bad = sorted(u for u in kern if kern[u] != plain.get(u))
+        raise AssertionError(f"f32 batch-layout tokens differ, kernels vs "
+                             f"plain, for uids {bad}")
+    if st_k["telemetry"] != st_p["telemetry"]:
+        raise AssertionError("f32 batch-layout telemetry differs")
+    new_tokens = sum(len(o) for o in outputs.values())
+    return launches, {
+        "completed": len(outputs), "new_tokens": new_tokens,
+        "decode_steps": stats["decode_steps"],
+        "dispatches": stats["dispatches"], "flash_decode_launches": launches,
+        "wall_s": dt, "tokens_per_s": new_tokens / dt,
+        "decode_step_ms": dt / stats["decode_steps"] * 1e3,
+        "f32_tokens_identical": len(kern), "f32_kernels_s": dt_k,
+        "f32_plain_s": dt_p}
+
+
 # -- main -----------------------------------------------------------------------
+
+PHASES = "build,kernels,teacher,profile,serve,tokens,flash,prefill,batch"
+#: the kernels' libraries, sources and the TPU kernels they replace
+KERNELS = (
+    ("paged_kv_write", "k1", "src/repro_torch/kernels/paged_decode/csrc/"
+     "paged_decode.cu", "src/repro/kernels/paged_decode/kernel.py:107"),
+    ("paged_gather_attend", "k2", "src/repro_torch/kernels/paged_decode/csrc/"
+     "paged_decode.cu", "src/repro/kernels/paged_decode/kernel.py:211"),
+    ("flash_attention", "k3", "src/repro_torch/kernels/flash_attention/csrc/"
+     "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:84"),
+    ("flash_decode", "k4", "src/repro_torch/kernels/paged_decode/csrc/"
+     "flash_decode.cu", "src/repro/kernels/paged_decode/flash.py:84"),
+)
+
+
+def phase_build():
+    """nvcc builds every kernel library at once, one process per library."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.paged_decode import flash as K4
+    from repro_torch.kernels.paged_decode import kernel as K
+    mods = (K, K3, K4)
+    with ThreadPoolExecutor(len(mods)) as pool:
+        built = list(pool.map(lambda m: m.build(), mods))
+    return {m.LIBRARY: {"library": os.path.relpath(path, ROOT),
+                        "ptxas": [ln.strip() for ln in log.splitlines()
+                                  if "registers" in ln or "spill" in ln]}
+            for m, (path, log) in zip(mods, built)}
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases",
-                    default="build,kernels,teacher,profile,serve,tokens",
-                    help="comma-separated subset of the phases to run")
+    ap.add_argument("--phases", default=PHASES,
+                    help="comma-separated subset of the phases to run "
+                         "(build always runs)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     import torch
@@ -591,65 +960,71 @@ def main(argv=None) -> int:
     sys.path.insert(0, SRC)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.kernels.paged_decode import kernel as K
     dev = torch.device("cuda")
-    kinfo = {"launches": {n: 0 for n in K.LAUNCHES}}
+    launches = {name: 0 for name, *_ in KERNELS}
+    err, tm = {}, {}
+
+    def run(phase, fn, *a):
+        t = time.monotonic()
+        res = fn(*a)
+        emit({"phase": phase, "seconds": time.monotonic() - t, **res})
 
     t = time.monotonic()
-    path, log = K.build()
-    emit({"phase": "build", "seconds": time.monotonic() - t,
-          "library": os.path.relpath(path, ROOT),
-          "ptxas": [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+    emit({"phase": "build", **phase_build(),
+          "seconds": time.monotonic() - t})
     if "kernels" in phases:
         t = time.monotonic()
-        err, timing = phase_kernels(dev)
-        kinfo.update(err=err, timing=timing)
+        e, timing = phase_kernels(dev)
+        err.update(e)
+        tm.update(timing)
         emit({"phase": "kernels", "seconds": time.monotonic() - t,
-              "max_abs_err": err, **timing})
+              "max_abs_err": e, **timing})
     if "teacher" in phases:
         for dtype in ("float32", "bfloat16"):
-            t = time.monotonic()
-            res = phase_teacher(dev, dtype)
-            emit({"phase": "teacher", "seconds": time.monotonic() - t, **res})
+            run("teacher", phase_teacher, dev, dtype)
     if "profile" in phases:
-        t = time.monotonic()
-        res = phase_profile(dev)
-        emit({"phase": "profile", "seconds": time.monotonic() - t, **res})
+        for layout in ("pooled", "batch"):
+            run("profile", phase_profile, dev, layout)
     if "serve" in phases:
         t = time.monotonic()
-        kinfo["launches"], res = phase_serve(dev)
+        paged, res = phase_serve(dev)
+        launches.update(paged)
         emit({"phase": "serve", "seconds": time.monotonic() - t, **res})
     if "tokens" in phases:
+        run("tokens", phase_tokens, dev)
+    if "flash" in phases:
         t = time.monotonic()
-        res = phase_tokens(dev)
-        emit({"phase": "tokens", "seconds": time.monotonic() - t, **res})
-
-    tm = kinfo.get("timing", {})
-    err = kinfo.get("err", {})
+        e, timing = phase_flash(dev)
+        err.update(e)
+        tm.update(timing)
+        emit({"phase": "flash", "seconds": time.monotonic() - t,
+              "max_abs_err": e, **timing})
+    if "prefill" in phases:
+        for dtype in ("float32", "bfloat16"):
+            t = time.monotonic()
+            # the bf16 prefill is the path whose K3 launches are reported
+            launches["flash_attention"], res = phase_prefill(dev, dtype)
+            emit({"phase": "prefill", "seconds": time.monotonic() - t, **res})
+    if "batch" in phases:
+        t = time.monotonic()
+        launches["flash_decode"], res = phase_batch(dev)
+        emit({"phase": "batch", "seconds": time.monotonic() - t, **res})
 
     def ms(key):
-        # the profiler's device time; the event-timed loop where the
-        # profiler saw no device activity
+        # the device time of timed(); the event-timed loop where neither
+        # device clock read anything
         t = tm.get(key)
         if t is None:
             return None
         return t["device_ms"] if t["device_ms"] is not None else t["loop_ms"]
-    src = "src/repro_torch/kernels/paged_decode/csrc/paged_decode.cu"
     emit({"kernels": [
-        {"name": "paged_kv_write", "route": "cuda", "source": src,
-         "replaces": "src/repro/kernels/paged_decode/kernel.py:107",
-         "launches": kinfo["launches"]["paged_kv_write"],
-         "max_abs_err": err.get("k1"), "ms": ms("k1"),
-         "plain_ms": ms("k1_plain"), "bound_ms": tm.get("k1_bound_ms"),
-         "bound_by": "bytes", "library_ms": ms("k1_library")},
-        {"name": "paged_gather_attend", "route": "cuda", "source": src,
-         "replaces": "src/repro/kernels/paged_decode/kernel.py:211",
-         "launches": kinfo["launches"]["paged_gather_attend"],
-         "max_abs_err": err.get("k2"), "ms": ms("k2"),
-         "plain_ms": ms("k2_plain"), "bound_ms": tm.get("k2_bound_ms"),
-         "bound_by": tm.get("k2_bound_by"), "library_ms": None},
-    ]})
+        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+         "launches": launches[name], "max_abs_err": err.get(key),
+         "ms": ms(key), "plain_ms": ms(f"{key}_plain"),
+         "bound_ms": tm.get(f"{key}_bound_ms"),
+         "bound_by": tm.get(f"{key}_bound_by", "bytes"),
+         "library_ms": ms(f"{key}_library")}
+        for name, key, src, replaces in KERNELS]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

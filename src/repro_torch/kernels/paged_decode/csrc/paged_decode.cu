@@ -31,66 +31,34 @@
 //   because its grid is static -- and skips frames another shard owns.  The
 //   warps split the G query heads of the group between them and, within a
 //   head, interleave chunks of 8 positions (4 when D > 128): a warp first
-//   loads a whole chunk's K and V rows into registers (lane i holds
-//   elements i, i+32, ... of each row, so every load is coalesced and a
-//   chunk's loads are all in flight together), then scores it and folds it
-//   into the warp's own online softmax (m, l, acc in f32 registers).  No
-//   shared memory holds K or V, so any page size fits.  At the end the
+//   loads a whole chunk's K and V rows into registers (each lane a pair of
+//   elements per load, so every load is coalesced and a chunk's loads are
+//   all in flight together), then scores it and folds it into the warp's
+//   own online softmax (m, l, acc in f32 registers; decode_attend.cuh,
+//   shared with K4).  No shared memory holds K or V, so any page size
+//   fits.  At the end the
 //   block merges its warps' (m, l, acc) by log-sum-exp through 8*D floats
 //   of shared memory and emits UNNORMALISED (acc, m, l) so shards can be
 //   merged the same way.  An empty row leaves exactly m = -1e30, l = 0,
 //   acc = 0.  scale = D^-0.5 multiplies the q.k product, as on the TPU.
 //   An earlier version staged pages through shared memory with four block
 //   barriers per page; it ran at 0.30 ms per call at the main path's
-//   shapes, twice the plain PyTorch version's device time.
+//   shapes on an H100, twice the plain PyTorch version's device time.  The
+//   next loaded one element per lane and load (0.088 ms).
 //
 // Both entries take (sid, n_shards, kv_start) so one build serves every
 // shard of a multi-shard layout.  Each C entry returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "decode_attend.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(
-    __nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+using repro::kNegInf;
+using repro::to_f32;
 
 template <typename To, typename From>
-__device__ __forceinline__ To convert(From x);
-template <> __device__ __forceinline__ float convert<float, float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-convert<__nv_bfloat16, __nv_bfloat16>(__nv_bfloat16 x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-convert<__nv_bfloat16, float>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <> __device__ __forceinline__ float convert<float, __nv_bfloat16>(
-    __nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+__device__ __forceinline__ To convert(From x) {
+  return repro::from_f32<To>(to_f32(x));
 }
 
 // -- K1: WRITE -----------------------------------------------------------------
@@ -127,7 +95,7 @@ __global__ void kv_write_kernel(const Tin* __restrict__ k_new,
 // -- K2: READ + attend ------------------------------------------------------------
 constexpr int kAttendWarps = 8;
 
-template <typename Tq, typename Tkv, int MAX_DPL, int CHUNK>
+template <typename Tq, typename Tkv, int MAX_P, int CHUNK>
 __global__ void __launch_bounds__(kAttendWarps * 32) gather_attend_kernel(
     const Tq* __restrict__ q, const Tkv* __restrict__ k_pages,
     const Tkv* __restrict__ v_pages, const int32_t* __restrict__ block_table,
@@ -151,100 +119,41 @@ __global__ void __launch_bounds__(kAttendWarps * 32) gather_attend_kernel(
   // heads warp, warp + kAttendWarps, ... alone
   const int wph = G >= kAttendWarps ? 1 : kAttendWarps / G;
   const int stride = CHUNK * wph;
-  const int rec = D + 2;
 
   for (int g = warp / wph; g < G; g += kAttendWarps / wph) {
     const int w = warp % wph;
-    float qr[MAX_DPL], acc[MAX_DPL];
+    float2 qr[MAX_P], acc[MAX_P];
+    repro::load_row(q + (head0 + g) * D, D, lane, true, qr);
 #pragma unroll
-    for (int i = 0; i < MAX_DPL; ++i) {
-      const int d = lane + 32 * i;
-      qr[i] = d < D ? to_f32(q[(head0 + g) * D + d]) : 0.f;
-      acc[i] = 0.f;
-    }
+    for (int i = 0; i < MAX_P; ++i) acc[i] = make_float2(0.f, 0.f);
     float m = kNegInf, l = 0.f;
     for (int c0 = lo + w * CHUNK; c0 < hi; c0 += stride) {
-      float kr[CHUNK][MAX_DPL], vr[CHUNK][MAX_DPL];
+      int64_t base[CHUNK];
       bool ok[CHUNK];
 #pragma unroll
       for (int c = 0; c < CHUNK; ++c) {
         const int pos = c0 + c;
         ok[c] = false;
-        int64_t base = 0;
+        base[c] = 0;
         if (pos < hi) {
           const int f = bt_row[pos / page_slots];
           if (f >= 0 && f % n_shards == sid && f / n_shards < np_loc) {
             ok[c] = true;
-            base = (((int64_t)(f / n_shards) * page_slots + pos % page_slots)
-                        * hkv + kvh) * D;
+            base[c] = (((int64_t)(f / n_shards) * page_slots
+                        + pos % page_slots) * hkv + kvh) * D;
           }
         }
-#pragma unroll
-        for (int i = 0; i < MAX_DPL; ++i) {
-          const int d = lane + 32 * i;
-          const bool ld = ok[c] && d < D;
-          kr[c][i] = ld ? to_f32(k_pages[base + d]) : 0.f;
-          vr[c][i] = ld ? to_f32(v_pages[base + d]) : 0.f;
-        }
       }
-      float s[CHUNK];
-      float cmax = kNegInf;
-#pragma unroll
-      for (int c = 0; c < CHUNK; ++c) {
-        float part = 0.f;
-#pragma unroll
-        for (int i = 0; i < MAX_DPL; ++i) part += qr[i] * kr[c][i];
-        part = warp_sum(part);
-        s[c] = ok[c] ? part * scale : kNegInf;
-        cmax = fmaxf(cmax, s[c]);
-      }
-      if (cmax == kNegInf) continue;        // nothing attended in the chunk
-      const float m_new = fmaxf(m, cmax);
-      const float alpha = expf(m - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int i = 0; i < MAX_DPL; ++i) acc[i] *= alpha;
-#pragma unroll
-      for (int c = 0; c < CHUNK; ++c) {
-        const float p = ok[c] ? expf(s[c] - m_new) : 0.f;
-        psum += p;
-#pragma unroll
-        for (int i = 0; i < MAX_DPL; ++i) acc[i] += p * vr[c][i];
-      }
-      l = l * alpha + psum;
-      m = m_new;
+      repro::fold_chunk<Tkv, MAX_P, CHUNK>(k_pages, v_pages, base, ok, D,
+                                           lane, scale, qr, acc, m, l);
     }
-    float* r = smem + (int64_t)(g * wph + w) * rec;
-#pragma unroll
-    for (int i = 0; i < MAX_DPL; ++i) {
-      const int d = lane + 32 * i;
-      if (d < D) r[d] = acc[i];
-    }
-    if (lane == 0) {
-      r[D] = m;
-      r[D + 1] = l;
-    }
+    repro::store_record(smem + (int64_t)(g * wph + w) * (D + 2), acc, m, l,
+                        D, lane);
   }
   __syncthreads();
-  // log-sum-exp merge of each head's warps
-  for (int e = threadIdx.x; e < G * (D + 1); e += blockDim.x) {
-    const int g = e / (D + 1);
-    const int d = e - g * (D + 1);
-    const float* r = smem + (int64_t)g * wph * rec;
-    float mx = kNegInf;
-    for (int w = 0; w < wph; ++w) mx = fmaxf(mx, r[w * rec + D]);
-    float sum = 0.f;
-    if (d < D) {
-      for (int w = 0; w < wph; ++w)
-        sum += r[w * rec + d] * expf(r[w * rec + D] - mx);
-      acc_out[(head0 + g) * D + d] = sum;
-    } else {
-      for (int w = 0; w < wph; ++w)
-        sum += r[w * rec + D + 1] * expf(r[w * rec + D] - mx);
-      m_out[head0 + g] = mx;
-      l_out[head0 + g] = sum;
-    }
-  }
+  // log-sum-exp merge of each head's warps; the output stays unnormalised
+  repro::merge_records<float, false>(smem, G, D, wph, head0, acc_out, m_out,
+                                     l_out);
 }
 
 constexpr int kWriteThreads = 256;
@@ -281,10 +190,10 @@ void launch_attend(const void* q, const void* k_pages, const void* v_pages,
       page_slots, max_lpages, hkv, np_loc, sid, n_shards, kv_start, window,  \
       scale
   if (D <= 128)
-    gather_attend_kernel<Tq, Tkv, 4, 8>
+    gather_attend_kernel<Tq, Tkv, 2, 8>
         <<<grid, threads, smem_bytes, stream>>>(REPRO_ATTEND_ARGS);
   else
-    gather_attend_kernel<Tq, Tkv, 8, 4>
+    gather_attend_kernel<Tq, Tkv, 4, 4>
         <<<grid, threads, smem_bytes, stream>>>(REPRO_ATTEND_ARGS);
 #undef REPRO_ATTEND_ARGS
 }
@@ -324,7 +233,12 @@ extern "C" int paged_gather_attend(const void* q, const void* k_pages,
                                    int q_dtype, int kv_dtype, void* stream) {
   // the one check of K2's shape limits: the wrapper reports
   // cudaErrorInvalidValue as a head_dim or group the kernel does not take
-  if (D < 1 || D > 256 || G < 1) return (int)cudaErrorInvalidValue;
+  if (D < 2 || D > 256 || D % 2 || G < 1) return (int)cudaErrorInvalidValue;
+  // rows are read in element pairs
+  if (reinterpret_cast<uintptr_t>(q) % (q_dtype == 1 ? 4 : 8) ||
+      (reinterpret_cast<uintptr_t>(k_pages) |
+       reinterpret_cast<uintptr_t>(v_pages)) % (kv_dtype == 1 ? 4 : 8))
+    return (int)cudaErrorInvalidValue;
   const int wph = G >= kAttendWarps ? 1 : kAttendWarps / G;
   const int smem_bytes = (int)sizeof(float) * G * wph * (D + 2);
   if (smem_bytes > 48 * 1024) return (int)cudaErrorInvalidValue;

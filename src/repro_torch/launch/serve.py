@@ -4,6 +4,12 @@ engine (the flags of ``repro.launch.serve``, plus ``--device``).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b
 
 runs on ``cuda``; ``--device cpu`` runs on the CPU (use ``--smoke`` there).
+The KV layout is the reference's: the batch layout by default (each slot
+owns a fixed [Hkv, max_len, hd] K/V row; on the card ``attn_impl="pallas"``
+sends its decode through K4 ``flash_decode``), ``--paged`` the reserved
+paged layout and ``--pooled`` the on-demand frame pool with prefix sharing
+and swap (both through K1 ``paged_kv_write`` and K2 ``paged_gather_attend``
+on the card, ``paged_kernel="auto"``; 16-slot pages).
 ``--trace`` replays a seeded synthetic trace (Poisson arrivals, Zipf prompt
 popularity, bimodal lengths) against the engine's decode-step clock, so
 requests genuinely queue; the JSON report then carries the per-request SLO
@@ -37,10 +43,17 @@ def main(argv=None) -> None:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
-    ap.add_argument("--paged", action="store_true",
-                    help="use the emulated-memory paged KV layout "
-                         "(reserved tables); the default is the pooled "
-                         "layout, since the port serves no batch layout yet")
+    layout = ap.add_mutually_exclusive_group()
+    layout.add_argument("--paged", action="store_true",
+                        help="use the emulated-memory paged KV layout "
+                             "(reserved tables, K1/K2 on the card); the "
+                             "default is the batch layout, whose decode "
+                             "runs K4 flash_decode on the card "
+                             "(attn_impl='pallas')")
+    layout.add_argument("--pooled", action="store_true",
+                        help="use the pooled KV layout: frames on demand "
+                             "from a shared pool, with prefix sharing and "
+                             "swap (K1/K2 on the card)")
     ap.add_argument("--max-fused-steps", type=int, default=8,
                     help="decode steps fused into one run between "
                          "control-plane events; 1 reproduces step-at-a-time "
@@ -90,8 +103,14 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    cfg = dataclasses.replace(
-        cfg, kv_layout="paged" if args.paged else "pooled", kv_page_slots=16)
+    if args.paged or args.pooled:
+        cfg = dataclasses.replace(
+            cfg, kv_layout="paged" if args.paged else "pooled",
+            kv_page_slots=16)
+    if torch.device(args.device).type == "cuda":
+        # the batch layout's kernels: K3 for full-sequence attention, K4
+        # for its decode (the paged layouts pick K1/K2 by paged_kernel)
+        cfg = dataclasses.replace(cfg, attn_impl="pallas")
     model = Model(cfg, device=args.device, seed=args.seed)
 
     engine = ServeEngine(model, EngineConfig(

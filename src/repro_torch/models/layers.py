@@ -1,6 +1,7 @@
-"""Model building blocks for decode: parameter tables, norms, RoPE, the QKV
-projection, the SwiGLU MLP and the embedding (a port of the decode-path
-parts of ``repro.models.layers``).
+"""Model building blocks: parameter tables, norms, RoPE, the QKV
+projection, full-sequence and batch-layout decode attention, the SwiGLU MLP
+and the embedding (a port of ``repro.models.layers`` for the dense family;
+cross-attention waits for the enc-dec slice).
 
 Parameters are nested dicts of tensors (or the ``nn.ParameterDict``s of
 :class:`repro_torch.models.model.Model`, which index the same way).
@@ -120,6 +121,151 @@ def project_qkv(cfg: ModelConfig, p, x: torch.Tensor,
         q = rope(q, positions[:, None, :], cfg.rope_theta)
         k = rope(k, positions[:, None, :], cfg.rope_theta)
     return q, k, v
+
+
+def _pick(s: int, c: int) -> int:
+    """The largest chunk <= c that divides s."""
+    c = min(c, s)
+    while s % c:
+        c -= 1
+    return c
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, window: int | None, chunk_q: int,
+                      chunk_k: int, kv_valid_len=None) -> torch.Tensor:
+    """Flash-equivalent attention in plain torch: an online softmax over KV
+    chunks inside a loop over Q chunks (the reference's two ``lax.scan``s),
+    never materialising the [Sq, Skv] logits.
+
+    q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D]; kv_valid_len: [B] optional
+    valid KV prefix lengths.  Queries sit at the tail of the KV sequence."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    g = hq // hkv
+    scale = d ** -0.5
+    cq, ck = _pick(sq, chunk_q), _pick(skv, chunk_k)
+    nq, nk = sq // cq, skv // ck
+    qf = q.reshape(b, hkv, g, nq, cq, d).float() * scale
+    kf = k.reshape(b, hkv, nk, ck, d).float()
+    vf = v.reshape(b, hkv, nk, ck, d).float()
+    q_base = skv - sq
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        qc = qf[:, :, :, qi]                           # [B, Hkv, G, cq, D]
+        q_pos = q_base + qi * cq + torch.arange(cq, device=dev)
+        m = torch.full((b, hkv, g, cq), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, hkv, g, cq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, hkv, g, cq, d), dtype=torch.float32, device=dev)
+        for kj in range(nk):
+            kc, vc = kf[:, :, kj], vf[:, :, kj]        # [B, Hkv, ck, D]
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kc)
+            k_pos = kj * ck + torch.arange(ck, device=dev)
+            mask = torch.ones((cq, ck), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= q_pos[:, None] >= k_pos[None, :]
+            if window is not None:
+                mask &= (q_pos[:, None] - k_pos[None, :]) < window
+            mask = mask.expand(s.shape)
+            if kv_valid_len is not None:
+                mask = mask & (k_pos[None, :] < kv_valid_len[:, None])[
+                    :, None, None, None, :]
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum("bhgqk,bhkd->bhgqd",
+                                                        p, vc)
+            m = m_new
+        outs.append(acc / torch.where(l == 0.0, 1.0, l)[..., None])
+    out = torch.stack(outs, dim=3)                     # [B, Hkv, G, nq, cq, D]
+    return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def full_attention(cfg: ModelConfig, q, k, v, *, causal: bool,
+                   window: int | None, kv_valid_len=None) -> torch.Tensor:
+    """Dispatch on ``cfg.attn_impl``: ``"pallas"`` is K3 through
+    :func:`repro_torch.kernels.flash_attention.ops.flash_attention` (the
+    CUDA kernel on CUDA tensors, the plain oracle on CPU ones); ``"ref"``
+    the plain oracle :func:`~repro_torch.kernels.flash_attention.ref.mha`;
+    ``"chunked"`` and ``"chunked_unrolled"`` :func:`chunked_attention`.  The
+    reference's unrolled form exists for XLA cost probes and skips fully
+    masked chunk pairs, which leaves the online softmax unchanged (their
+    probabilities are 0 and their rescale factor 1): the same arithmetic."""
+    impl = cfg.attn_impl
+    if impl == "pallas":
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        assert kv_valid_len is None
+        return fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    if impl == "ref":
+        from repro_torch.kernels.flash_attention import ref as fa_ref
+        assert kv_valid_len is None
+        return fa_ref.mha(q, k, v, causal=causal, window=window)
+    if impl in ("chunked", "chunked_unrolled"):
+        assert impl == "chunked" or kv_valid_len is None
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 chunk_q=cfg.attn_chunk_q,
+                                 chunk_k=cfg.attn_chunk_k,
+                                 kv_valid_len=kv_valid_len)
+    raise ValueError(f"unknown attn_impl {impl!r}")
+
+
+def attention_block(cfg: ModelConfig, p, x: torch.Tensor,
+                    positions: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention (forward / prefill without cache)."""
+    b, s, _ = x.shape
+    q, k, v = project_qkv(cfg, p, x, positions)
+    out = full_attention(cfg, q, k, v, causal=causal, window=cfg.window)
+    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
+    return out @ p["wo"]
+
+
+def decode_attention_block(cfg: ModelConfig, p, x: torch.Tensor,
+                           k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           lengths: torch.Tensor, write_mask=None):
+    """One-token decode with a batch-layout cache, updated IN PLACE.
+
+    x: [B, 1, d]; k_cache/v_cache: [B, Hkv, S_max, hd]; lengths: [B] count
+    INCLUDING the new token.  Returns (out [B, 1, d], k_cache, v_cache).
+
+    As in the reference, the new K/V row is written at ``lengths - 1``
+    before attending, and a length-0 row (index -1) writes nothing: the
+    write goes through a gather/scatter at the clamped index that puts the
+    old row back where nothing is to be written, never through the -1
+    sentinel, which would wrap to the last position.  Rows that
+    ``write_mask`` turns off attend with the new row as the reference's do,
+    and then get their old row back (the reference's ``_mask_entry``)."""
+    b = x.shape[0]
+    positions = (lengths - 1)[:, None]
+    q, k_new, v_new = project_qkv(cfg, p, x, positions)
+    s_max = k_cache.shape[2]
+    ix = (lengths.long() - 1).clamp(0, s_max - 1)
+    ix = ix.view(b, 1, 1, 1).expand(b, cfg.n_kv_heads, 1, cfg.hd)
+    hit = ((lengths >= 1) & (lengths <= s_max)).view(b, 1, 1, 1)
+    saved = []
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        old = cache.gather(2, ix)
+        row = torch.where(hit, new.to(cache.dtype), old)
+        cache.scatter_(2, ix, row)
+        saved.append((cache, old, row))
+    if cfg.attn_impl == "pallas":
+        from repro_torch.kernels.paged_decode.flash_ops import decode_attention
+        out = decode_attention(q[:, :, 0], k_cache, v_cache, lengths,
+                               window=cfg.window)
+    else:
+        from repro_torch.kernels.paged_decode import flash_ref
+        out = flash_ref.decode_attention(q[:, :, 0], k_cache, v_cache,
+                                         lengths, window=cfg.window)
+    if write_mask is not None:
+        keep = write_mask.view(b, 1, 1, 1)
+        for cache, old, row in saved:
+            cache.scatter_(2, ix, torch.where(keep, row, old))
+    out = out.reshape(b, 1, cfg.n_heads * cfg.hd)
+    return out @ p["wo"], k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------

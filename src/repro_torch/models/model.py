@@ -5,8 +5,8 @@ Weights are drawn from an explicit ``torch.Generator`` on the model's device
 with the reference's distributions; they are stacked over layer periods
 exactly as the reference's param pytree, so
 :func:`repro_torch.weights.from_jax_params` can load that pytree one tensor
-at a time.  The model serves decode only: parameters never require
-gradients.
+at a time.  The model runs inference only (forward, prefill, decode):
+parameters never require gradients.
 """
 from __future__ import annotations
 
@@ -53,6 +53,19 @@ class Model(nn.Module):
 
     def init_cache(self, batch_size: int, max_len: int, dtype=None) -> dict:
         return T.init_cache(self.cfg, batch_size, max_len, self.device, dtype)
+
+    @torch.no_grad()
+    def forward(self, batch: dict) -> torch.Tensor:
+        """Hidden states [B, S, d] of ``batch["tokens"]`` [B, S]; see
+        :func:`repro_torch.models.transformer.forward`."""
+        return T.forward(self.cfg, self.params, batch, periods=self.periods())
+
+    @torch.no_grad()
+    def prefill(self, batch: dict, max_len: int):
+        """(last-position logits, batch-layout cache) of the prompt; see
+        :func:`repro_torch.models.transformer.prefill`."""
+        return T.prefill(self.cfg, self.params, batch, max_len,
+                         periods=self.periods())
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, cache: dict,

@@ -1,15 +1,25 @@
-"""Decoder-only transformer: decode over the paged/pooled KV memory (a port
-of the decode path of ``repro.models.transformer``).
+"""Decoder-only transformer: the full-sequence forward, prefill into the
+batch KV layout, and decode over the batch, paged and pooled KV layouts (a
+port of ``repro.models.transformer`` for the dense family).
 
 Parameters and caches are stacked over layer periods ([n_periods, ...]
 leading axis) exactly as in the reference, so the weight bridge and the
 page movers see the same layout; where the reference scans over periods,
 the port loops over them, taking each period's slice of every stacked
-tensor as a view.
+tensor as a view.  Cache layouts (``cfg.kv_layout``):
 
-This slice serves the dense attention-only family on the ``paged`` and
-``pooled`` KV layouts.  The batch layout waits for ROADMAP Queue 1 item 5,
-MoE for item 7, SSM/hybrid for item 6 and enc-dec for item 8.
+  "batch"  -- per block ``{"k", "v"}`` of [n_periods, B, Hkv, max_len, hd];
+              ``prefill`` fills it, batch-layout decode writes row
+              ``lengths - 1`` in place;
+  "paged" / "pooled" -- per block ``{"k_pages", "v_pages"}`` plus the
+              BlockManager tables ``cache["vm"]``.
+
+The reference's ``remat``, ``block_barrier``, ``unroll_layers`` and
+``maybe_constrain`` are XLA compilation and sharding controls (rematerial-
+isation, optimisation barriers, unrolled scans, sharding constraints): an
+eager PyTorch loop has nothing they would change, so the port reads none
+of them.  ``lm_loss`` waits for the training slice (ROADMAP Queue 1 item
+10), MoE for item 7, SSM/hybrid for item 6 and enc-dec for item 8.
 """
 from __future__ import annotations
 
@@ -33,14 +43,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError("MoE models: ROADMAP Queue 1 item 7")
 
 
-def check_layout(cfg: ModelConfig) -> None:
-    if cfg.kv_layout not in ("paged", "pooled"):
-        raise NotImplementedError(
-            f"kv_layout={cfg.kv_layout!r}: the batch layout and full-sequence "
-            "prefill are ROADMAP Queue 1 item 5; this slice serves 'paged' "
-            "and 'pooled'")
-
-
 # ---------------------------------------------------------------------------
 # Parameter tables
 # ---------------------------------------------------------------------------
@@ -58,18 +60,96 @@ def decoder_defs(cfg: ModelConfig) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Blocks and the full stack (forward without cache)
+# ---------------------------------------------------------------------------
+def _mixer(cfg: ModelConfig, i: int, p, x: torch.Tensor,
+           positions: torch.Tensor) -> torch.Tensor:
+    h = L.rms_norm(x, p["ln_mix"]["w"], cfg.rms_eps)
+    return x + L.attention_block(cfg, p["attn"], h, positions)
+
+
+def _ffn(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    h = L.rms_norm(x, p["ln_mlp"]["w"], cfg.rms_eps)
+    return x + L.mlp_block(p["mlp"], h)
+
+
+def block_apply(cfg: ModelConfig, i: int, p, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    return _ffn(cfg, p, _mixer(cfg, i, p, x, positions))
+
+
+def period_params(params, j: int) -> dict:
+    """Period ``j``'s slice of every stacked block parameter, as views."""
+    def take(tree):
+        return {k: take(v) if not isinstance(v, torch.Tensor) else v[j]
+                for k, v in tree.items()}
+    return {k: take(v) for k, v in params.items() if k.startswith("b")}
+
+
+def _periods(cfg: ModelConfig, params, periods):
+    return periods if periods is not None else [
+        period_params(params, j) for j in range(cfg.n_periods)]
+
+
+def stack_apply(cfg: ModelConfig, params, x: torch.Tensor,
+                positions: torch.Tensor, periods=None) -> torch.Tensor:
+    for pp in _periods(cfg, params, periods):
+        for i in range(cfg.layer_period):
+            x = block_apply(cfg, i, pp[f"b{i}"], x, positions)
+    return x
+
+
+def _embed(cfg: ModelConfig, params, batch: dict) -> torch.Tensor:
+    return L.embed_tokens(cfg, params["embed"], batch["tokens"]).to(
+        torch_dtype(cfg.compute_dtype))
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    b, s = x.shape[:2]
+    return torch.arange(s, device=x.device).expand(b, s)
+
+
+def _last_logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+    """Final norm, unembed of the last position, padded vocab masked."""
+    x = L.rms_norm(x, params["ln_f"]["w"], cfg.rms_eps)
+    logits = L.unembed(cfg, params["embed"], x[:, -1]).float()
+    if cfg.vocab_padded != cfg.vocab_size:
+        pad = torch.arange(cfg.vocab_padded, device=logits.device) \
+            >= cfg.vocab_size
+        logits = torch.where(pad, L.NEG_INF, logits)
+    return logits
+
+
+def forward(cfg: ModelConfig, params, batch: dict, periods=None):
+    """Embed -> stack -> final norm.  Returns hidden states [B, S, d]."""
+    check_supported(cfg)
+    x = _embed(cfg, params, batch)
+    x = stack_apply(cfg, params, x, _positions(x), periods)
+    return L.rms_norm(x, params["ln_f"]["w"], cfg.rms_eps)
+
+
+# ---------------------------------------------------------------------------
 # Caches
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device,
                dtype=None) -> dict:
-    """Zero cache: per block position ``{"k_pages", "v_pages"}`` of
-    [n_periods, n_pages, slots, Hkv, hd], plus the BlockManager translation
-    tables ``cache["vm"]`` shared by every attention layer.  "paged" starts
-    from the identity tables (slot b owns frames b*max_pages..), "pooled"
-    starts empty."""
+    """Zero cache.  Batch layout: per block position ``{"k", "v"}`` of
+    [n_periods, B, Hkv, max_len, hd].  Paged layouts: per block position
+    ``{"k_pages", "v_pages"}`` of [n_periods, n_pages, slots, Hkv, hd], plus
+    the BlockManager translation tables ``cache["vm"]`` shared by every
+    attention layer; "paged" starts from the identity tables (slot b owns
+    frames b*max_pages..), "pooled" starts empty."""
     check_supported(cfg)
-    check_layout(cfg)
     kv_dtype = torch_dtype(dtype or cfg.kv_dtype or cfg.compute_dtype)
+    if cfg.kv_layout == "batch":
+        shape = (cfg.n_periods, batch_size, cfg.n_kv_heads, max_len, cfg.hd)
+        return {f"b{i}": {"k": torch.zeros(shape, dtype=kv_dtype,
+                                           device=device),
+                          "v": torch.zeros(shape, dtype=kv_dtype,
+                                           device=device)}
+                for i in range(cfg.layer_period)}
+    if cfg.kv_layout not in ("paged", "pooled"):
+        raise ValueError(f"unknown kv_layout {cfg.kv_layout!r}")
     slots = cfg.kv_page_slots
     max_pages = -(-max_len // slots)
     if cfg.kv_layout == "pooled":
@@ -100,32 +180,70 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device,
 
 
 # ---------------------------------------------------------------------------
-# Decode (one token, paged KV layout)
+# Prefill (batch KV layout)
 # ---------------------------------------------------------------------------
-def _ffn(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    h = L.rms_norm(x, p["ln_mlp"]["w"], cfg.rms_eps)
-    return x + L.mlp_block(p["mlp"], h)
+def block_prefill(cfg: ModelConfig, i: int, p, x: torch.Tensor,
+                  positions: torch.Tensor, k_out: torch.Tensor,
+                  v_out: torch.Tensor) -> torch.Tensor:
+    """Like :func:`block_apply`, and writes this block's K/V for the S
+    prompt positions into ``k_out``/``v_out`` ([B, Hkv, max_len, hd] views
+    of the zeroed cache; positions >= S stay zero, the reference's pad)."""
+    h = L.rms_norm(x, p["ln_mix"]["w"], cfg.rms_eps)
+    b, s, _ = x.shape
+    q, k, v = L.project_qkv(cfg, p["attn"], h, positions)
+    out = L.full_attention(cfg, q, k, v, causal=True, window=cfg.window)
+    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
+    x = x + out @ p["attn"]["wo"]
+    k_out[:, :, :s] = k
+    v_out[:, :, :s] = v
+    return _ffn(cfg, p, x)
 
 
+def prefill(cfg: ModelConfig, params, batch: dict, max_len: int,
+            periods=None):
+    """Run the prompt, return (last-position logits [B, vocab_padded] f32,
+    cache) with the cache in the batch KV layout (per block ``{"k", "v"}``
+    of [n_periods, B, Hkv, max_len, hd] in the compute dtype, as the
+    reference pads and casts it)."""
+    check_supported(cfg)
+    x = _embed(cfg, params, batch)
+    b, s = x.shape[:2]
+    if s > max_len:
+        raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
+    positions = _positions(x)
+    shape = (cfg.n_periods, b, cfg.n_kv_heads, max_len, cfg.hd)
+    cache = {f"b{i}": {name: torch.zeros(shape, dtype=x.dtype,
+                                         device=x.device)
+                       for name in ("k", "v")}
+             for i in range(cfg.layer_period)}
+    for j, pp in enumerate(_periods(cfg, params, periods)):
+        for i in range(cfg.layer_period):
+            e = cache[f"b{i}"]
+            x = block_prefill(cfg, i, pp[f"b{i}"], x, positions,
+                              e["k"][j], e["v"][j])
+    return _last_logits(cfg, params, x), cache
+
+
+# ---------------------------------------------------------------------------
+# Decode (one token; batch or paged KV layout)
+# ---------------------------------------------------------------------------
 def block_decode(cfg: ModelConfig, i: int, p, x: torch.Tensor, entry: dict,
                  lengths: torch.Tensor, vm: dict | None = None,
                  write_mask=None):
-    """One layer: x [B, 1, d] -> x'.  The entry's pages (this layer's
-    [n_pages, slots, Hkv, hd] views) are updated in place."""
-    # imported here: the dispatch layer imports this package's layers
-    from repro_torch.parallel.paged_attention import paged_decode_block
+    """One layer: x [B, 1, d] -> x'.  The entry (this layer's views of the
+    cache: batch-layout ``k``/``v`` or paged ``k_pages``/``v_pages``) is
+    updated in place; rows ``write_mask`` turns off keep their cache, the
+    reference's ``_mask_entry``."""
     h = L.rms_norm(x, p["ln_mix"]["w"], cfg.rms_eps)
-    out, _ = paged_decode_block(cfg, p["attn"], h, entry, lengths, vm,
-                                write_mask)
+    if cfg.kv_layout in ("paged", "pooled"):
+        # imported here: the dispatch layer imports this package's layers
+        from repro_torch.parallel.paged_attention import paged_decode_block
+        out, _ = paged_decode_block(cfg, p["attn"], h, entry, lengths, vm,
+                                    write_mask)
+    else:
+        out, _, _ = L.decode_attention_block(cfg, p["attn"], h, entry["k"],
+                                             entry["v"], lengths, write_mask)
     return _ffn(cfg, p, x + out)
-
-
-def period_params(params, j: int) -> dict:
-    """Period ``j``'s slice of every stacked block parameter, as views."""
-    def take(tree):
-        return {k: take(v) if not isinstance(v, torch.Tensor) else v[j]
-                for k, v in tree.items()}
-    return {k: take(v) for k, v in params.items() if k.startswith("b")}
 
 
 def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache: dict,
@@ -142,17 +260,10 @@ def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache: dict,
     x = L.embed_tokens(cfg, params["embed"], tokens).to(
         torch_dtype(cfg.compute_dtype))
     vm = cache.get("vm")
-    for j in range(cfg.n_periods):
-        pp = periods[j] if periods is not None else period_params(params, j)
+    for j, pp in enumerate(_periods(cfg, params, periods)):
         for i in range(cfg.layer_period):
             key = f"b{i}"
             entry = {name: t[j] for name, t in cache[key].items()}
             x = block_decode(cfg, i, pp[key], x, entry, lengths, vm,
                              write_mask)
-    x = L.rms_norm(x, params["ln_f"]["w"], cfg.rms_eps)
-    logits = L.unembed(cfg, params["embed"], x[:, -1]).float()
-    if cfg.vocab_padded != cfg.vocab_size:
-        pad = torch.arange(cfg.vocab_padded, device=logits.device) \
-            >= cfg.vocab_size
-        logits = torch.where(pad, L.NEG_INF, logits)
-    return logits, cache
+    return _last_logits(cfg, params, x), cache

@@ -101,6 +101,16 @@ def paged_entries(cache: dict):
             yield key, entry
 
 
+def slot_state_entries(cache: dict):
+    """(key, entry) pairs holding per-SLOT state (the batch layout's k/v;
+    SSM conv/ssd rows once that slice lands) rather than shared paged KV --
+    what a slot reset zeroes."""
+    for key, entry in cache.items():
+        if key.startswith("b") and isinstance(entry, dict) \
+                and "k_pages" not in entry:
+            yield key, entry
+
+
 #: numpy has no bfloat16/fp8: such pages travel to the host as raw bits
 _BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
 _NUMPY_NATIVE = (torch.float32, torch.float64, torch.float16)

@@ -6,7 +6,10 @@ admitted by the scheduler into free slots, prefilled one token at a time
 through the decode step (their KV written into the slot's frames), then
 advanced together by the shared decode step.
 
-KV frame ownership and residency sit behind one refcounted
+With ``kv_layout="batch"`` every slot owns a fixed [Hkv, max_len, hd] row
+of each layer's K/V and there is no frame management at all: no
+BlockManager, no sharing, no preemption (``blocks is None``).  With the
+paged layouts, KV frame ownership and residency sit behind one refcounted
 :class:`repro_torch.emem_vm.BlockManager`: every sequence goes through a
 logical->frame block table that rides in the cache (``cache["vm"]``) into
 the paged-decode kernels.  The two paged ``kv_layout`` values are
@@ -53,6 +56,7 @@ from repro_torch.emem_vm import BlockManager, OutOfFrames, PageIO
 from repro_torch.models.model import Model
 from repro_torch.parallel.paged_attention import (cow_copy_pages,
                                                   read_frame_pages,
+                                                  slot_state_entries,
                                                   write_frame_pages)
 from repro_torch.serve.fused_decode import (fused_decode_run,
                                             sampled_decode_step)
@@ -131,6 +135,9 @@ class ServeEngine:
                          "shared_prompt_tokens": 0, "leaked_frames": 0,
                          "score_cache_hits": 0}
         cfg = model.cfg
+        self.blocks = None
+        if cfg.kv_layout not in ("paged", "pooled"):
+            return                   # batch layout: no frame management
         self.page_slots = cfg.kv_page_slots
         self.max_lpages = -(-ecfg.max_len // self.page_slots)
         if cfg.kv_layout == "pooled":
@@ -212,6 +219,8 @@ class ServeEngine:
         """Back position ``new_len - 1`` of ``slot`` with a writable frame,
         applying any copy-on-write and preempting the youngest sequence on
         pool exhaustion.  Returns False iff ``slot`` itself was preempted."""
+        if self.blocks is None:
+            return True
         while True:
             try:
                 copies = self.blocks.ensure_writable(slot, new_len - 1)
@@ -258,16 +267,18 @@ class ServeEngine:
             self.metrics.on_complete(req)
             return
         swapped = False
-        tag = id(req)
-        if self.blocks.evict_seq(slot, tag) is not None:
-            # resume state: committed KV length and the pending next token
-            # (the served models keep no per-slot state besides the pages)
-            req._swap = {"tag": tag, "committed": committed,
-                         "next": getattr(req, "_next", None)}
-            self.counters["swapped"] += 1
-            swapped = True
-        else:
-            self.blocks.release_seq(slot, completed=False)
+        if self.blocks is not None:
+            tag = id(req)
+            if self.blocks.evict_seq(slot, tag) is not None:
+                # resume state: committed KV length and the pending next
+                # token (the served models keep no per-slot state besides
+                # the pages)
+                req._swap = {"tag": tag, "committed": committed,
+                             "next": getattr(req, "_next", None)}
+                self.counters["swapped"] += 1
+                swapped = True
+            else:
+                self.blocks.release_seq(slot, completed=False)
         self.counters["preempted"] += 1
         self.metrics.on_preempt(req, swapped=swapped)
         self.preempted.append(req)
@@ -282,11 +293,12 @@ class ServeEngine:
         return out
 
     def _release(self, slot: int) -> None:
-        self.blocks.release_seq(slot, completed=True)
+        if self.blocks is not None:
+            self.blocks.release_seq(slot, completed=True)
 
     def _sync_vm(self) -> None:
         """Push the BlockManager tables into the cache if they changed."""
-        if self.blocks.dirty:
+        if self.blocks is not None and self.blocks.dirty:
             self.cache["vm"] = {k: self._to_device(v)
                                 for k, v in self.blocks.tables().items()}
             self.blocks.dirty = False
@@ -314,14 +326,18 @@ class ServeEngine:
             self.slot_req[i] = None
             self.counters["aborted"] += 1
             self.metrics.on_abort(r)
-            self.blocks.release_seq(i, completed=False)
-        leaked = self.blocks.shutdown()
-        tiers = self.blocks.leak_counts()
+            if self.blocks is not None:
+                self.blocks.release_seq(i, completed=False)
+        leaked = self.blocks.shutdown() if self.blocks is not None else 0
+        tiers = (self.blocks.leak_counts() if self.blocks is not None
+                 else {"device": 0, "host": 0, "spill": 0})
         self.counters["leaked_frames"] = leaked
         stats = dict(self.counters)
         stats.update({f"leaked_{t}_frames": n for t, n in tiers.items()})
-        stats.update(self.blocks.counters)
-        stats["shared_prompt_tokens"] = self.blocks.counters["shared_tokens"]
+        if self.blocks is not None:
+            stats.update(self.blocks.counters)
+            stats["shared_prompt_tokens"] = \
+                self.blocks.counters["shared_tokens"]
         stats["telemetry"] = self.metrics.summary()
         if leaked:
             raise RuntimeError(
@@ -336,7 +352,11 @@ class ServeEngine:
 
     def admission_cost(self, req: Request):
         """Residency cost terms for admitting ``req`` right now (an
-        :class:`repro_torch.emem_vm.AdmissionCost`)."""
+        :class:`repro_torch.emem_vm.AdmissionCost`), or None without a
+        BlockManager: the batch layout carries no residency signal, so any
+        score built on top degenerates to FIFO."""
+        if self.blocks is None:
+            return None
         return self.blocks.admission_cost(self._tokens_for(req),
                                           tag=self._swap_tag(req))
 
@@ -350,6 +370,8 @@ class ServeEngine:
             return False
         if not self.free_slots():
             return False
+        if self.blocks is None:
+            return True
         if cost is None:
             cost = self.blocks.admission_cost(toks, tag=self._swap_tag(req))
         return cost.admissible
@@ -375,7 +397,8 @@ class ServeEngine:
         self._admit_counter += 1
         self._admit_seq[slot] = self._admit_counter
         swap = getattr(req, "_swap", None)
-        if swap is not None and self.blocks.has_swap(swap["tag"]):
+        if swap is not None and self.blocks is not None \
+                and self.blocks.has_swap(swap["tag"]):
             swap_in0 = self.blocks.counters["swap_in_pages"]
             spill_in0 = self.blocks.counters["spill_in_pages"]
             self.blocks.restore_seq(slot, swap["tag"], toks)
@@ -400,11 +423,14 @@ class ServeEngine:
                 return
         else:
             self._reset_slot(slot)
-            shared = self.blocks.begin_seq(slot, toks)
-            self.counters["shared_prompt_tokens"] += shared
+            shared = 0
+            if self.blocks is not None:
+                shared = self.blocks.begin_seq(slot, toks)
+                self.counters["shared_prompt_tokens"] += shared
             self.metrics.on_admit(
                 req, shared_tokens=shared,
-                match_depth_pages=-(-shared // self.page_slots))
+                match_depth_pages=-(-shared // self.page_slots)
+                if self.blocks is not None else 0)
             start = min(shared, len(toks) - 1)
         mask = np.zeros(self.ecfg.slots, bool)
         mask[slot] = True                # only this slot commits KV writes
@@ -430,6 +456,11 @@ class ServeEngine:
         lengths[slot] = 0
         self.lengths = self._to_device(lengths)
         self._kv_committed[slot] = 0
+        # per-slot state (the batch layout's K/V rows) is zeroed, so a
+        # reused slot starts from the state a fresh cache would have
+        for _, entry in slot_state_entries(self.cache):
+            for t in entry.values():
+                t[:, slot] = 0
 
     # -- decode -------------------------------------------------------------
     def _fused_horizon(self, order, lengths, max_steps: int | None) -> int:
@@ -527,7 +558,7 @@ class ServeEngine:
         lengths_np = self._host_lengths()
         horizon = self._fused_horizon(order, lengths_np, max_steps)
         plan = None
-        if horizon > 1:
+        if horizon > 1 and self.blocks is not None:
             plan = self.blocks.stage_fused_run(
                 order, [int(lengths_np[i]) for i in order], horizon)
             if plan.n <= 1:              # immediate growth/COW: stepwise
@@ -547,7 +578,7 @@ class ServeEngine:
             toks[i, 0] = req._next
             lengths[i] += 1
             if self._grow(i, int(lengths[i]), lengths) and \
-                    self.slot_req[i] is not None:
+                    self.slot_req[i] is not None and self.blocks is not None:
                 self.blocks.prefetch(i, int(lengths[i]))
         self.lengths = self._to_device(lengths)
         active = [i for i, r in enumerate(self.slot_req) if r is not None]

@@ -78,7 +78,8 @@ def fused_decode_run(model, cap: int, tokens, cache, lengths, active,
       n_steps: iteration bound (host int, <= cap).
       eos_id: EOS token (-1: none, so no token matches).
       staged_lp / staged_frame: ``int32[B, cap]`` staged prefetch mappings
-        (-1 = nothing), column ``k`` applied at the top of iteration ``k``.
+        (-1 = nothing), column ``k`` applied at the top of iteration ``k``;
+        ignored when the cache carries no ``vm`` tables (batch layout).
 
     Returns ``(buf, n_done, cache, lengths)`` with ``buf`` and ``n_done`` on
     the host: the ``int32[cap, B]`` numpy buffer (row k = tokens sampled by
@@ -90,7 +91,7 @@ def fused_decode_run(model, cap: int, tokens, cache, lengths, active,
     n_done = torch.zeros((), dtype=torch.int32, device=dev)
     toks = tokens
     for k in range(n_steps):
-        if staged_lp is not None:
+        if staged_lp is not None and "vm" in cache:
             cache["vm"] = _apply_staged(cache["vm"], staged_lp[:, k],
                                         staged_frame[:, k], alive)
         lengths = lengths + inc * alive
