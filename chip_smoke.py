@@ -6,11 +6,14 @@
 Builds the port's CUDA kernels from ``src/repro_torch`` and drives the
 port's serving paths at the full width of qwen3-0.6b (random weights from a
 seed): the pooled KV memory (K1, K2), full-sequence prefill (K3) and the
-batch KV layout (K4).  Each phase prints one JSON line with its seconds:
+batch KV layout (K4); then the Mamba2 family at the full width of
+mamba2-780m: prefill through the SSD scan (K5) and recurrent-state serving.
+Each phase prints one JSON line with its seconds:
 
-1. build      -- nvcc builds the three kernel libraries from the checkout's
+1. build      -- nvcc builds the four kernel libraries from the checkout's
                  sources, all at once: paged decode (K1 paged_kv_write, K2
-                 paged_gather_attend), K3 flash_attention, K4 flash_decode;
+                 paged_gather_attend), K3 flash_attention, K4 flash_decode,
+                 K5 ssd;
 2. kernels    -- K1 and K2 each against its plain PyTorch version (the
                  composed oracle, ``kernels/paged_decode/ref.py``) at the
                  main path's shapes (f32 and bf16, 1 and 2 emulated shards,
@@ -41,7 +44,24 @@ batch KV layout (K4).  Each phase prints one JSON line with its seconds:
 8. batch      -- the full-width engine + scheduler serve the phase-4 trace
                  on the batch KV layout with attn_impl "pallas": in bf16
                  every decode step of every layer launched K4; in f32 the
-                 per-uid tokens equal the plain path's.
+                 per-uid tokens equal the plain path's;
+9. ssd        -- K5 against its plain version (``ref.ssd_chunked``) at the
+                 prefill's shape (Bt 8, S 512, H 48, P 64, N 128, G 1,
+                 chunk 128), at S = 200 and 511 with G = 2 and chunk 64, at
+                 the smoke config's widths (P 32, N 16, chunk 8) and with a
+                 chunk of 100, f32 and bf16: y and the final state; kernel
+                 / plain / bound times;
+10. ssm_prefill -- full-width mamba2-780m Model.prefill of 8 x 512 and
+                 8 x 511 tokens with K5 (attn_impl "pallas") and with its
+                 plain version ("ref") in f32: logits and conv/ssd cache
+                 agree (SSM_ORDER_FACTOR), prefill(510) plus one decode
+                 step reproduces prefill(511); in bf16 the timed prefill
+                 launches K5 once per layer;
+11. ssm_serve  -- the full-width mamba2-780m engine + scheduler serve the
+                 phase-4 trace on the batch layout in bf16 (its decode is
+                 the recurrent step, plain torch; no kernel launches), a
+                 profiled decode step gives the device busy share, and in
+                 f32 fused and stepwise runs serve identical tokens.
 
 Then it prints the kernels' JSON line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -90,6 +110,26 @@ FLASH_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 FLASH_ATOL = 1e-5
 # phase 7: 8 prompts of 511 tokens into a 512-position batch cache
 PREFILL_B, PREFILL_S, PREFILL_MAX_LEN = 8, 511, 512
+# phase 9: K5 at the prefill's shape (mamba2-780m, 8 prompts of 512 tokens)
+SSD_SHAPE = dict(bt=8, s=512, h=48, p=64, n=128, g=1, chunk=128)
+# K5 against plain (both compute in f32 from the same inputs, summing in
+# another order): f32 y and state within rtol/atol 1e-4; bf16 y within one
+# bf16 rounding step (2^-7 |y|) + 1e-4, since both round an f32 result that
+# may differ in its last bits, and the f32 state within rtol/atol 1e-3
+SSD_TOL = {"float32": (1e-4, 1e-4, 1e-4), "bfloat16": (2.0 ** -7, 1e-4, 1e-3)}
+# phase 10, f32, the kernel path against the plain path (attn_impl "ref":
+# K5's plain version, the same 128-row chunks) over 48 random-weight
+# layers: layer 0 (the same inputs to both) within LOGIT_RTOL of max
+# |value|; the logits and every layer's cache within LOGIT_RTOL or, where
+# larger, SSM_ORDER_FACTOR times the plain path's own disagreement with
+# itself at half the chunk.  The random weights drive dt * A to cumulative
+# sums near 1e4 inside a chunk, where f32 resolves ~1e-3, so any change of
+# summation order moves the decays by ~1e-4 relative per layer and 48
+# layers carry it to ~1e-2: the same for the kernel as for a second plain
+# order (this phase on an NVIDIA H100 at 700 W: the plain path at chunk 64
+# against 128 differs by 6.8e-3 in the logits, the kernel path by 1.4e-2,
+# while layer 0 agrees within 6.3e-5).
+SSM_ORDER_FACTOR = 4
 
 SERVE_ENGINE = dict(slots=8, max_len=512, max_fused_steps=8, retain_frames=16)
 # 32 frames of 16 slots: a 194-token prompt with 48 new tokens needs 16
@@ -503,24 +543,30 @@ def phase_teacher(dev, dtype: str, steps: int = 64):
 # -- phases 4 and 5 --------------------------------------------------------------
 
 def serve(dev, dtype: str, **cfg_kw):
-    """Replay the trace through the full-width engine (pooled layout unless
-    ``cfg_kw`` says otherwise); returns (per-uid outputs, shutdown stats,
-    seconds)."""
+    """Replay the trace through the full-width qwen3-0.6b engine (pooled
+    layout unless ``cfg_kw`` says otherwise); returns (per-uid outputs,
+    shutdown stats, seconds)."""
+    cfg = full_cfg(dtype, **{"kv_pool_pages": SERVE_POOL, **cfg_kw})
+    return serve_model(dev, cfg, SERVE_ENGINE, SERVE_TRACE)
+
+
+def serve_model(dev, cfg, engine: dict, trace: dict):
+    """Replay ``trace`` through ``cfg``'s engine + scheduler (random weights
+    from seed 0); returns (per-uid outputs, shutdown stats, seconds)."""
     import torch
     from repro_torch.models.model import Model
     from repro_torch.serve import (EngineConfig, Scheduler, ServeEngine,
                                    TraceConfig, generate, replay)
-    cfg = full_cfg(dtype, **{"kv_pool_pages": SERVE_POOL, **cfg_kw})
     model = Model(cfg, device=dev, seed=0)
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    with ServeEngine(model, EngineConfig(**SERVE_ENGINE)) as eng:
-        done = replay(generate(TraceConfig(**SERVE_TRACE)), Scheduler(eng))
+    with ServeEngine(model, EngineConfig(**engine)) as eng:
+        done = replay(generate(TraceConfig(**trace)), Scheduler(eng))
     torch.cuda.synchronize()
     dt = time.monotonic() - t0
     stats = eng.shutdown()
-    if len(done) != SERVE_TRACE["n_requests"] or not all(r.done for r in done):
-        raise AssertionError(f"{len(done)} of {SERVE_TRACE['n_requests']} "
+    if len(done) != trace["n_requests"] or not all(r.done for r in done):
+        raise AssertionError(f"{len(done)} of {trace['n_requests']} "
                              "requests completed")
     if stats["leaked_frames"]:
         raise AssertionError(f"leaked frames: {stats['leaked_frames']}")
@@ -581,20 +627,22 @@ def phase_tokens(dev):
 KERNEL_SYMBOLS = {"paged_kv_write": "kv_write_kernel",
                   "paged_gather_attend": "gather_attend_kernel",
                   "flash_attention": "fa_kernel",
-                  "flash_decode": "flash_decode_kernel"}
+                  "flash_decode": "flash_decode_kernel",
+                  "ssd": "ssd_kernel"}
 
 
-def phase_profile(dev, layout: str, steps: int = 10):
+def phase_profile(dev, layout: str, steps: int = 10, cfg=None):
     """Where a decode step's time goes: full-width bf16 decode of 8
     sequences at ~256 tokens (pooled: over scrambled tables, K1/K2; batch:
-    attn_impl "pallas", K4), each step synced to the host as the engine's
-    stepwise path does.  Wall time per step (no profiler), then device time
-    per step by kernel from torch.profiler."""
+    attn_impl "pallas", K4; or ``cfg``'s model), each step synced to the
+    host as the engine's stepwise path does.  Wall time per step (no
+    profiler), then device time per step by kernel from torch.profiler."""
     import torch
     from repro_torch.models.model import Model
     from repro_torch.serve.fused_decode import sampled_decode_step
-    cfg = (full_cfg("bfloat16") if layout == "pooled" else
-           full_cfg("bfloat16", kv_layout="batch", attn_impl="pallas"))
+    if cfg is None:
+        cfg = (full_cfg("bfloat16") if layout == "pooled" else
+               full_cfg("bfloat16", kv_layout="batch", attn_impl="pallas"))
     model = Model(cfg, device=dev, seed=0)
     cache = model.init_cache(B, MAX_LP * PS)
     rng = np.random.default_rng(5)
@@ -625,7 +673,7 @@ def phase_profile(dev, layout: str, steps: int = 10):
     dev_ms, by_name = device_profile(step, iters=steps, warmup=0)
     del model, cache
     torch.cuda.empty_cache()
-    out = {"layout": layout, "wall_ms_per_step": wall_ms,
+    out = {"model": cfg.name, "layout": layout, "wall_ms_per_step": wall_ms,
            "device_ms_per_step": dev_ms}
     if dev_ms is None:
         return out
@@ -911,9 +959,281 @@ def phase_batch(dev):
         "f32_plain_s": dt_p}
 
 
+# -- phase 9 -------------------------------------------------------------------
+
+def ssd_case(seed, dtype, dev, bt, s, h, p, n, g):
+    """K5 inputs in the reference tests' distributions: x, B, C in
+    ``dtype``; dt [Bt, S, H], A, D [H] in f32."""
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=torch.float32):
+        return torch.tensor(a.astype(np.float32), device=dev).to(dt)
+    return (t(rng.normal(size=(bt, s, h, p)), dtype),
+            t(rng.uniform(0.01, 0.2, size=(bt, s, h))),
+            t(-rng.uniform(0.5, 2.0, size=(h,))),
+            t(rng.normal(size=(bt, s, g, n)), dtype),
+            t(rng.normal(size=(bt, s, g, n)), dtype),
+            t(rng.normal(size=(h,))))
+
+
+def check_k5(args, chunk, err):
+    """K5 against ref.ssd_chunked on one input set: y and the final state
+    within SSD_TOL; folds the max errors into ``err``."""
+    import torch
+    from repro_torch.kernels.mamba2_ssd import kernel as K5
+    from repro_torch.kernels.mamba2_ssd import ref
+    got = K5.ssd(*args, chunk=chunk)
+    want = ref.ssd_chunked(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    dtype = str(args[0].dtype).split(".")[1]
+    rtol_y, atol_y, tol_state = SSD_TOL[dtype]
+    what = (f"{dtype} x {tuple(args[0].shape)} B {tuple(args[3].shape)} "
+            f"chunk={chunk}")
+    for key, g, w, rtol, atol in (("k5", got[0], want[0], rtol_y, atol_y),
+                                  ("k5_state", got[1], want[1], tol_state,
+                                   tol_state)):
+        dlt = (g.float() - w.float()).abs()
+        e = dlt.max().item()
+        err[key] = max(err[key], e)
+        if not bool((dlt <= atol + rtol * w.float().abs()).all()):
+            raise AssertionError(f"{key} differs from plain by {e}: {what}")
+
+
+def phase_ssd(dev):
+    """K5 against its plain version at the prefill's shape and at other
+    lengths (a tail chunk), groups and chunks, f32 and bf16."""
+    import torch
+    err = {"k5": 0.0, "k5_state": 0.0}
+    main = {k: v for k, v in SSD_SHAPE.items() if k != "chunk"}
+    for dt in (torch.float32, torch.bfloat16):
+        check_k5(ssd_case(61, dt, dev, **main), SSD_SHAPE["chunk"], err)
+        for s in (200, 511):
+            check_k5(ssd_case(67, dt, dev, bt=2, s=s, h=48, p=64, n=128, g=2),
+                     64, err)
+        # the smoke config's widths and chunk; a chunk that is no multiple
+        # of the kernel's 32-row tiles
+        check_k5(ssd_case(73, dt, dev, bt=2, s=37, h=4, p=32, n=16, g=1), 8,
+                 err)
+        check_k5(ssd_case(79, dt, dev, bt=2, s=100, h=8, p=64, n=128, g=1),
+                 100, err)
+    return err, time_ssd(dev)
+
+
+def ssd_work(args, chunk):
+    """(bytes, operations) the SSD scan must spend on these inputs: x, B,
+    C, dt, A and D read once, y and the f32 final state written once;
+    2 (N + P) operations per causal (query, key) pair inside a chunk (C.B
+    and the weighted sum of x) and 4 N P per position (C . state and the
+    state update)."""
+    x, dt, A, B, C, D = args
+    bt, s, h, p = x.shape
+    n = B.shape[3]
+    nbytes = ((2 * x.numel() + B.numel() + C.numel()) * x.element_size()
+              + (dt.numel() + A.numel() + D.numel()) * 4 + bt * h * n * p * 4)
+    rows = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
+    pairs = sum(q * (q + 1) // 2 for q in rows)
+    ops = bt * h * (2 * (n + p) * pairs + 4 * n * p * s)
+    return nbytes, ops
+
+
+def time_ssd(dev):
+    """Kernel and plain times at the prefill's shape in bf16, cycling over
+    three input sets (81 MB, past the 50 MB L2), as each layer's scan finds
+    its inputs cold.  No single PyTorch call computes the scan, so K5 has
+    no library time."""
+    import torch
+    from repro_torch.kernels.mamba2_ssd import kernel as K5
+    from repro_torch.kernels.mamba2_ssd import ref
+    main = {k: v for k, v in SSD_SHAPE.items() if k != "chunk"}
+    chunk = SSD_SHAPE["chunk"]
+    xs = [ssd_case(83 + i, torch.bfloat16, dev, **main) for i in range(3)]
+    it = itertools.count()
+
+    def pick():
+        return xs[next(it) % len(xs)]
+    out = {"k5": timed(lambda: K5.ssd(*pick(), chunk=chunk)),
+           "k5_plain": timed(lambda: ref.ssd_chunked(*pick(), chunk=chunk),
+                             iters=10)}
+    nbytes, ops = ssd_work(xs[0], chunk)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
+    out.update(k5_bound_ms=max(t_bytes, t_ops) * 1e3,
+               k5_bound_by="bytes" if t_bytes >= t_ops else "operations",
+               k5_bytes=nbytes, k5_ops=ops)
+    return out
+
+
+# -- phase 10 ------------------------------------------------------------------
+
+def mamba_cfg(dtype: str, **kw):
+    """mamba2-780m at full width in ``dtype`` (batch layout)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("mamba2-780m"), param_dtype=dtype,
+                               compute_dtype=dtype, **kw)
+
+
+def rel_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def phase_ssm_prefill(dev, dtype: str):
+    """Full-width mamba2-780m prefill of 8 x 512 and 8 x 511 tokens with K5
+    (attn_impl "pallas"): K5 launched once per layer per call.  In f32 the
+    logits and conv/ssd cache agree with the plain path ("ref") as
+    SSM_ORDER_FACTOR says, and prefill(510) plus one decode step reproduces
+    prefill(511) to the same limit.  Returns (K5 launches of the 8 x 512
+    prefill, results)."""
+    import torch
+    from repro_torch.kernels.mamba2_ssd import kernel as K5
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
+    cfg = mamba_cfg(dtype, attn_impl="pallas")
+    model = Model(cfg, device=dev, seed=0)
+    rng = np.random.default_rng(9)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size,
+                                     (PREFILL_B, PREFILL_MAX_LEN)), device=dev)
+    model.prefill({"tokens": toks[:, :16]}, PREFILL_MAX_LEN)   # warm up
+    vocab = cfg.vocab_size          # the padded columns hold -1e30
+    res, main_launches, logits511 = {"dtype": dtype}, None, None
+    order_floor = None
+    for s in (PREFILL_MAX_LEN, PREFILL_S):
+        batch = {"tokens": toks[:, :s]}
+        torch.cuda.synchronize()
+        K5.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(batch, PREFILL_MAX_LEN)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = K5.LAUNCHES["ssd"]
+        if launches != cfg.n_layers:
+            raise AssertionError(f"ssd: {launches} launches in one prefill of "
+                                 f"{cfg.n_layers} layers")
+        if not bool(torch.isfinite(logits[:, :vocab]).all()):
+            raise AssertionError(f"prefill of {s} ({dtype}): logits not finite")
+        main_launches = main_launches or launches
+        r = {"prefill_ms": wall_ms, "ssd_launches": launches,
+             "prompt_tokens_per_s": PREFILL_B * s / wall_ms * 1e3}
+        if dtype == "float32":
+            plain = {}
+            for chunk in (cfg.ssd_chunk, cfg.ssd_chunk // 2):
+                t0 = time.perf_counter()
+                pl, pc = T.prefill(
+                    dataclasses.replace(cfg, attn_impl="ref",
+                                        ssd_chunk=chunk), model.params,
+                    batch, PREFILL_MAX_LEN, periods=model.periods())
+                torch.cuda.synchronize()
+                r.setdefault("plain_prefill_ms", (time.perf_counter() - t0)
+                             * 1e3)
+                plain[chunk] = {"logits": pl[:, :vocab], **pc["b0"]}
+            ref, other = plain[cfg.ssd_chunk], plain[cfg.ssd_chunk // 2]
+            got = {"logits": logits[:, :vocab], **cache["b0"]}
+            rel = {k: rel_err(got[k], ref[k]) for k in got}
+            floor = {k: rel_err(other[k], ref[k]) for k in got}
+            layer0 = {k: rel_err(got[k][0], ref[k][0]) for k in ("conv", "ssd")}
+            for what, e in layer0.items():
+                if not np.isfinite(e) or e > LOGIT_RTOL[dtype]:
+                    raise AssertionError(
+                        f"ssm prefill layer 0 {what} (S={s}): kernel vs "
+                        f"plain {e} of max |value| > {LOGIT_RTOL[dtype]}")
+            for what, e in rel.items():
+                lim = max(LOGIT_RTOL[dtype], SSM_ORDER_FACTOR * floor[what])
+                if not np.isfinite(e) or e > lim:
+                    raise AssertionError(
+                        f"ssm prefill {what} (S={s}): kernel vs plain {e} of "
+                        f"max |value| > {lim} (plain vs plain {floor[what]})")
+            r.update(rel=rel, rel_layer0=layer0, rel_plain_half_chunk=floor)
+            order_floor = floor["logits"]
+            del plain, ref, other
+        res[f"s{s}"] = r
+        logits511 = logits
+        del cache
+    if dtype == "float32":
+        # prefill(S-1) + one decode step == prefill(S) at S = 511
+        _, short = model.prefill({"tokens": toks[:, :PREFILL_S - 1]},
+                                 PREFILL_MAX_LEN)
+        lengths = torch.full((PREFILL_B,), PREFILL_S, dtype=torch.int32,
+                             device=dev)
+        dec, _ = model.decode_step(
+            toks[:, PREFILL_S - 1:PREFILL_S].to(torch.int32), short, lengths)
+        e = rel_err(dec[:, :vocab], logits511[:, :vocab])
+        lim = max(LOGIT_RTOL[dtype], SSM_ORDER_FACTOR * order_floor)
+        if not np.isfinite(e) or e > lim:
+            raise AssertionError(f"ssm prefill + decode vs prefill: rel {e} "
+                                 f"> {lim}")
+        res["rel_prefill_plus_decode"] = e
+        del short
+    del model
+    torch.cuda.empty_cache()
+    return main_launches, res
+
+
+# -- phase 11 ------------------------------------------------------------------
+
+#: the batch layout, as the serve CLI runs it (no frames: nothing to retain)
+SSM_SERVE_ENGINE = dict(slots=8, max_len=512, max_fused_steps=8)
+#: f32 fused against stepwise: the phase-4 trace cut to its first requests
+SSM_TOKENS_REQUESTS = 4
+
+
+def phase_ssm_serve(dev):
+    """The phase-4 trace through the full-width mamba2-780m engine on the
+    batch layout in bf16: every request completes and no kernel launches
+    (the recurrent decode step is plain torch, prompts prefill through it);
+    one profiled decode step; in f32 fused and stepwise runs serve
+    identical per-uid tokens."""
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.mamba2_ssd import kernel as K5
+    from repro_torch.kernels.paged_decode import flash as K4
+    from repro_torch.kernels.paged_decode import kernel as K
+    mods = (K, K3, K4, K5)
+    for mod in mods:
+        mod.reset_launch_counts()
+    cfg = mamba_cfg("bfloat16", attn_impl="pallas")
+    trace = dict(SERVE_TRACE, vocab_size=cfg.vocab_size)
+    outputs, stats, dt = serve_model(dev, cfg, SSM_SERVE_ENGINE, trace)
+    launched = {k: n for mod in mods for k, n in mod.LAUNCHES.items() if n}
+    if launched:
+        raise AssertionError(f"SSM serving launched kernels: {launched}")
+    new_tokens = sum(len(o) for o in outputs.values())
+    res = {"completed": len(outputs), "new_tokens": new_tokens,
+           "decode_steps": stats["decode_steps"],
+           "dispatches": stats["dispatches"], "wall_s": dt,
+           "tokens_per_s": new_tokens / dt,
+           "decode_step_ms": dt / stats["decode_steps"] * 1e3,
+           "weight_bytes": cfg.param_count() * 2,
+           "weight_read_bound_ms": cfg.param_count() * 2 / HBM_BYTES_PER_S
+           * 1e3,
+           "p99_ttft_steps": stats["telemetry"]["ttft_steps"]["p99"],
+           "mean_itl_steps": stats["telemetry"]["itl_steps"]["mean"],
+           "profile": phase_profile(dev, "batch", cfg=cfg)}
+    f32 = mamba_cfg("float32", attn_impl="pallas")
+    short = dict(trace, n_requests=SSM_TOKENS_REQUESTS)
+    runs = {n: serve_model(dev, f32, dict(SSM_SERVE_ENGINE,
+                                          max_fused_steps=n), short)
+            for n in (8, 1)}
+    (fused, st_f, dt_f), (step, st_s, dt_s) = runs[8], runs[1]
+    if fused != step:
+        bad = sorted(u for u in fused if fused[u] != step.get(u))
+        raise AssertionError(f"f32 SSM tokens differ, fused vs stepwise, for "
+                             f"uids {bad}")
+    # tokens only: on this trace the reference's own fused and stepwise
+    # runs differ in decode steps and inter-token gaps (admission timing),
+    # and the port reproduces each of them (tests/test_torch_ssm.py)
+    res.update(f32_tokens_identical=len(fused),
+               f32_new_tokens=sum(len(o) for o in fused.values()),
+               f32_decode_steps={"fused": st_f["decode_steps"],
+                                 "stepwise": st_s["decode_steps"]},
+               f32_dispatches={"fused": st_f["dispatches"],
+                               "stepwise": st_s["dispatches"]},
+               f32_fused_s=dt_f, f32_stepwise_s=dt_s)
+    return res
+
+
 # -- main -----------------------------------------------------------------------
 
-PHASES = "build,kernels,teacher,profile,serve,tokens,flash,prefill,batch"
+PHASES = ("build,kernels,teacher,profile,serve,tokens,flash,prefill,batch,"
+          "ssd,ssm_prefill,ssm_serve")
 #: the kernels' libraries, sources and the TPU kernels they replace
 KERNELS = (
     ("paged_kv_write", "k1", "src/repro_torch/kernels/paged_decode/csrc/"
@@ -924,6 +1244,8 @@ KERNELS = (
      "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:84"),
     ("flash_decode", "k4", "src/repro_torch/kernels/paged_decode/csrc/"
      "flash_decode.cu", "src/repro/kernels/paged_decode/flash.py:84"),
+    ("ssd", "k5", "src/repro_torch/kernels/mamba2_ssd/csrc/ssd.cu",
+     "src/repro/kernels/mamba2_ssd/kernel.py:76"),
 )
 
 
@@ -931,9 +1253,10 @@ def phase_build():
     """nvcc builds every kernel library at once, one process per library."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.mamba2_ssd import kernel as K5
     from repro_torch.kernels.paged_decode import flash as K4
     from repro_torch.kernels.paged_decode import kernel as K
-    mods = (K, K3, K4)
+    mods = (K, K3, K4, K5)
     with ThreadPoolExecutor(len(mods)) as pool:
         built = list(pool.map(lambda m: m.build(), mods))
     return {m.LIBRARY: {"library": os.path.relpath(path, ROOT),
@@ -1009,6 +1332,23 @@ def main(argv=None) -> int:
         t = time.monotonic()
         launches["flash_decode"], res = phase_batch(dev)
         emit({"phase": "batch", "seconds": time.monotonic() - t, **res})
+    if "ssd" in phases:
+        t = time.monotonic()
+        e, timing = phase_ssd(dev)
+        err.update(e)
+        tm.update(timing)
+        emit({"phase": "ssd", "seconds": time.monotonic() - t,
+              "max_abs_err": e, **timing})
+    if "ssm_prefill" in phases:
+        for dtype in ("float32", "bfloat16"):
+            t = time.monotonic()
+            # the bf16 8 x 512 prefill is the path whose K5 launches are
+            # reported
+            launches["ssd"], res = phase_ssm_prefill(dev, dtype)
+            emit({"phase": "ssm_prefill", "seconds": time.monotonic() - t,
+                  **res})
+    if "ssm_serve" in phases:
+        run("ssm_serve", phase_ssm_serve, dev)
 
     def ms(key):
         # the device time of timed(); the event-timed loop where neither

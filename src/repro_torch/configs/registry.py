@@ -1,7 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's launchers.
 
-Lists only the archs the port serves; the reference registry's other archs
-wait for their model families (ROADMAP Queue 1)."""
+Lists only the archs the port serves: the dense qwen3-0.6b and the Mamba2
+(SSM) mamba2-780m.  The reference registry's other archs wait for their
+model families (ROADMAP Queue 1)."""
 from __future__ import annotations
 
 import importlib
@@ -11,6 +12,7 @@ from repro_torch.models.config import ModelConfig
 #: arch id -> module name (one file per served architecture)
 ARCHS = {
     "qwen3-0.6b": "qwen3_0_6b",
+    "mamba2-780m": "mamba2_780m",
 }
 
 

@@ -4,7 +4,9 @@ engine (the flags of ``repro.launch.serve``, plus ``--device``).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b
 
 runs on ``cuda``; ``--device cpu`` runs on the CPU (use ``--smoke`` there).
-The KV layout is the reference's: the batch layout by default (each slot
+``--arch mamba2-780m`` serves the Mamba2 model: its decode is the recurrent
+step (plain torch; the per-slot conv/SSD state lives beside any KV cache),
+and it takes no ``--retain-frames``.  The KV layout is the reference's: the batch layout by default (each slot
 owns a fixed [Hkv, max_len, hd] K/V row; on the card ``attn_impl="pallas"``
 sends its decode through K4 ``flash_decode``), ``--paged`` the reserved
 paged layout and ``--pooled`` the on-demand frame pool with prefix sharing

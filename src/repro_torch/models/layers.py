@@ -11,6 +11,7 @@ which the model draws its weights with the reference's distributions.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -26,7 +27,7 @@ NEG_INF = -1e30
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]
-    init: str = "normal"          # normal | zeros | ones
+    init: str = "normal"          # normal | zeros | ones | ssm_a | ssm_dt
     scale: float | None = None    # stddev for "normal" (default fan-in)
 
     def initialize(self, gen: torch.Generator, dtype: torch.dtype,
@@ -37,6 +38,13 @@ class ParamDef:
             return torch.zeros(self.shape, dtype=dtype, device=device)
         if self.init == "ones":
             return torch.ones(self.shape, dtype=dtype, device=device)
+        if self.init in ("ssm_a", "ssm_dt"):
+            # A_log: log of U[1, 16]; dt bias: U[log 1e-3, log 1e-1]
+            lo, hi = ((1.0, 16.0) if self.init == "ssm_a"
+                      else (math.log(1e-3), math.log(1e-1)))
+            u = torch.rand(self.shape, generator=gen, dtype=torch.float32,
+                           device=device) * (hi - lo) + lo
+            return (torch.log(u) if self.init == "ssm_a" else u).to(dtype)
         # the leading dim of a stacked [n_periods, ...] def counts as its
         # fan-in, exactly as in the reference
         fan_in = self.shape[0] if len(self.shape) > 1 else self.shape[-1]

@@ -1,6 +1,7 @@
-"""Decoder-only transformer: the full-sequence forward, prefill into the
-batch KV layout, and decode over the batch, paged and pooled KV layouts (a
-port of ``repro.models.transformer`` for the dense family).
+"""Decoder-only stack: the full-sequence forward, prefill into the batch KV
+layout, and decode over the batch, paged and pooled KV layouts (a port of
+``repro.models.transformer`` for the dense, SSM and expert-free hybrid
+families).
 
 Parameters and caches are stacked over layer periods ([n_periods, ...]
 leading axis) exactly as in the reference, so the weight bridge and the
@@ -14,19 +15,26 @@ tensor as a view.  Cache layouts (``cfg.kv_layout``):
   "paged" / "pooled" -- per block ``{"k_pages", "v_pages"}`` plus the
               BlockManager tables ``cache["vm"]``.
 
+A Mamba2 block position keeps per-slot recurrent state in every layout:
+``{"conv": [n_periods, B, conv-1, d_inner + 2GN], "ssd": [n_periods, B, H,
+N, P] f32}``.
+
 The reference's ``remat``, ``block_barrier``, ``unroll_layers`` and
 ``maybe_constrain`` are XLA compilation and sharding controls (rematerial-
 isation, optimisation barriers, unrolled scans, sharding constraints): an
 eager PyTorch loop has nothing they would change, so the port reads none
 of them.  ``lm_loss`` waits for the training slice (ROADMAP Queue 1 item
-10), MoE for item 7, SSM/hybrid for item 6 and enc-dec for item 8.
+10), MoE for item 7 and enc-dec for item 8.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.device import torch_dtype
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 
 
@@ -37,8 +45,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError("enc-dec models: ROADMAP Queue 1 item 8")
     if cfg.frontend is not None:
         raise NotImplementedError("vision/audio frontends: ROADMAP Queue 1 item 8")
-    if any(cfg.layer_kind(i) != "attn" for i in range(cfg.layer_period)):
-        raise NotImplementedError("SSM and hybrid models: ROADMAP Queue 1 item 6")
     if cfg.n_experts:
         raise NotImplementedError("MoE models: ROADMAP Queue 1 item 7")
 
@@ -47,8 +53,15 @@ def check_supported(cfg: ModelConfig) -> None:
 # Parameter tables
 # ---------------------------------------------------------------------------
 def block_defs(cfg: ModelConfig, i: int) -> dict:
-    return {"ln_mix": L.norm_defs(cfg), "attn": L.attention_defs(cfg),
-            "ln_mlp": L.norm_defs(cfg), "mlp": L.mlp_defs(cfg)}
+    d: dict = {"ln_mix": L.norm_defs(cfg)}
+    if cfg.layer_kind(i) == "attn":
+        d["attn"] = L.attention_defs(cfg)
+    else:
+        d["mamba"] = S.ssm_defs(cfg)
+    if cfg.layer_has_mlp(i):
+        d["ln_mlp"] = L.norm_defs(cfg)
+        d["mlp"] = L.mlp_defs(cfg)
+    return d
 
 
 def decoder_defs(cfg: ModelConfig) -> dict:
@@ -65,17 +78,21 @@ def decoder_defs(cfg: ModelConfig) -> dict:
 def _mixer(cfg: ModelConfig, i: int, p, x: torch.Tensor,
            positions: torch.Tensor) -> torch.Tensor:
     h = L.rms_norm(x, p["ln_mix"]["w"], cfg.rms_eps)
-    return x + L.attention_block(cfg, p["attn"], h, positions)
+    if cfg.layer_kind(i) == "attn":
+        return x + L.attention_block(cfg, p["attn"], h, positions)
+    return x + S.ssm_block(cfg, p["mamba"], h)
 
 
-def _ffn(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, i: int, p, x: torch.Tensor) -> torch.Tensor:
+    if not cfg.layer_has_mlp(i):
+        return x
     h = L.rms_norm(x, p["ln_mlp"]["w"], cfg.rms_eps)
     return x + L.mlp_block(p["mlp"], h)
 
 
 def block_apply(cfg: ModelConfig, i: int, p, x: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
-    return _ffn(cfg, p, _mixer(cfg, i, p, x, positions))
+    return _ffn(cfg, i, p, _mixer(cfg, i, p, x, positions))
 
 
 def period_params(params, j: int) -> dict:
@@ -133,36 +150,52 @@ def forward(cfg: ModelConfig, params, batch: dict, periods=None):
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device,
                dtype=None) -> dict:
-    """Zero cache.  Batch layout: per block position ``{"k", "v"}`` of
-    [n_periods, B, Hkv, max_len, hd].  Paged layouts: per block position
-    ``{"k_pages", "v_pages"}`` of [n_periods, n_pages, slots, Hkv, hd], plus
-    the BlockManager translation tables ``cache["vm"]`` shared by every
-    attention layer; "paged" starts from the identity tables (slot b owns
-    frames b*max_pages..), "pooled" starts empty."""
+    """Zero cache.  Attention block positions: batch layout ``{"k", "v"}``
+    of [n_periods, B, Hkv, max_len, hd]; paged layouts ``{"k_pages",
+    "v_pages"}`` of [n_periods, n_pages, slots, Hkv, hd], plus the
+    BlockManager translation tables ``cache["vm"]`` shared by every
+    attention layer (only when there is one); "paged" starts from the
+    identity tables (slot b owns frames b*max_pages..), "pooled" starts
+    empty.  Mamba2 block positions: ``conv`` [n_periods, B, conv-1,
+    d_inner + 2GN] in the compute dtype and ``ssd`` [n_periods, B, H, N, P]
+    in f32."""
     check_supported(cfg)
     kv_dtype = torch_dtype(dtype or cfg.kv_dtype or cfg.compute_dtype)
-    if cfg.kv_layout == "batch":
-        shape = (cfg.n_periods, batch_size, cfg.n_kv_heads, max_len, cfg.hd)
-        return {f"b{i}": {"k": torch.zeros(shape, dtype=kv_dtype,
-                                           device=device),
-                          "v": torch.zeros(shape, dtype=kv_dtype,
-                                           device=device)}
-                for i in range(cfg.layer_period)}
-    if cfg.kv_layout not in ("paged", "pooled"):
+    state_dtype = torch_dtype(dtype or cfg.compute_dtype)
+    if cfg.kv_layout not in ("batch", "paged", "pooled"):
         raise ValueError(f"unknown kv_layout {cfg.kv_layout!r}")
-    slots = cfg.kv_page_slots
-    max_pages = -(-max_len // slots)
-    if cfg.kv_layout == "pooled":
-        n_pages = cfg.kv_pool_pages or batch_size * max_pages
+    paged = cfg.kv_layout in ("paged", "pooled")
+    if paged:
+        slots = cfg.kv_page_slots
+        max_pages = -(-max_len // slots)
+        if cfg.kv_layout == "pooled":
+            n_pages = cfg.kv_pool_pages or batch_size * max_pages
+        else:
+            n_pages = batch_size * max_pages
+        names = ("k_pages", "v_pages")
+        shape = (cfg.n_periods, n_pages, slots, cfg.n_kv_heads, cfg.hd)
     else:
-        n_pages = batch_size * max_pages
-    shape = (cfg.n_periods, n_pages, slots, cfg.n_kv_heads, cfg.hd)
+        names = ("k", "v")
+        shape = (cfg.n_periods, batch_size, cfg.n_kv_heads, max_len, cfg.hd)
     cache: dict = {}
     for i in range(cfg.layer_period):
-        cache[f"b{i}"] = {
-            "k_pages": torch.zeros(shape, dtype=kv_dtype, device=device),
-            "v_pages": torch.zeros(shape, dtype=kv_dtype, device=device),
-        }
+        if cfg.layer_kind(i) == "attn":
+            cache[f"b{i}"] = {name: torch.zeros(shape, dtype=kv_dtype,
+                                                device=device)
+                              for name in names}
+        else:
+            conv_ch = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+            cache[f"b{i}"] = {
+                "conv": torch.zeros((cfg.n_periods, batch_size,
+                                     cfg.ssm_conv - 1, conv_ch),
+                                    dtype=state_dtype, device=device),
+                "ssd": torch.zeros((cfg.n_periods, batch_size,
+                                    cfg.ssm_heads, cfg.ssm_state,
+                                    cfg.ssm_head_dim), dtype=torch.float32,
+                                   device=device)}
+    if not paged or all(cfg.layer_kind(i) != "attn"
+                        for i in range(cfg.layer_period)):
+        return cache
     i32 = dict(dtype=torch.int32, device=device)
     if cfg.kv_layout == "pooled":
         block_table = torch.full((batch_size, max_pages), -1, **i32)
@@ -183,44 +216,49 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device,
 # Prefill (batch KV layout)
 # ---------------------------------------------------------------------------
 def block_prefill(cfg: ModelConfig, i: int, p, x: torch.Tensor,
-                  positions: torch.Tensor, k_out: torch.Tensor,
-                  v_out: torch.Tensor) -> torch.Tensor:
-    """Like :func:`block_apply`, and writes this block's K/V for the S
-    prompt positions into ``k_out``/``v_out`` ([B, Hkv, max_len, hd] views
-    of the zeroed cache; positions >= S stay zero, the reference's pad)."""
+                  positions: torch.Tensor, entry: dict) -> torch.Tensor:
+    """Like :func:`block_apply`, and writes this block's cache into
+    ``entry`` (this period's views of the zeroed cache).  Attention: K/V of
+    the S prompt positions into ``k``/``v`` [B, Hkv, max_len, hd]
+    (positions >= S stay zero, the reference's pad).  Mamba2: the conv
+    tail into ``conv`` in the compute dtype and the final SSD state into
+    ``ssd`` in f32."""
     h = L.rms_norm(x, p["ln_mix"]["w"], cfg.rms_eps)
     b, s, _ = x.shape
-    q, k, v = L.project_qkv(cfg, p["attn"], h, positions)
-    out = L.full_attention(cfg, q, k, v, causal=True, window=cfg.window)
-    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
-    x = x + out @ p["attn"]["wo"]
-    k_out[:, :, :s] = k
-    v_out[:, :, :s] = v
-    return _ffn(cfg, p, x)
+    if cfg.layer_kind(i) == "attn":
+        q, k, v = L.project_qkv(cfg, p["attn"], h, positions)
+        out = L.full_attention(cfg, q, k, v, causal=True, window=cfg.window)
+        out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
+        x = x + out @ p["attn"]["wo"]
+        entry["k"][:, :, :s] = k
+        entry["v"][:, :, :s] = v
+    else:
+        out, (conv, ssd) = S.ssm_block(cfg, p["mamba"], h, return_state=True)
+        x = x + out
+        entry["conv"].copy_(conv)
+        entry["ssd"].copy_(ssd)
+    return _ffn(cfg, i, p, x)
 
 
 def prefill(cfg: ModelConfig, params, batch: dict, max_len: int,
             periods=None):
     """Run the prompt, return (last-position logits [B, vocab_padded] f32,
-    cache) with the cache in the batch KV layout (per block ``{"k", "v"}``
-    of [n_periods, B, Hkv, max_len, hd] in the compute dtype, as the
-    reference pads and casts it)."""
+    cache) with the cache in the batch KV layout: per attention block
+    ``{"k", "v"}`` of [n_periods, B, Hkv, max_len, hd] in the compute dtype,
+    as the reference pads and casts it; per Mamba2 block ``{"conv",
+    "ssd"}`` as :func:`init_cache` lays them out."""
     check_supported(cfg)
     x = _embed(cfg, params, batch)
     b, s = x.shape[:2]
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
     positions = _positions(x)
-    shape = (cfg.n_periods, b, cfg.n_kv_heads, max_len, cfg.hd)
-    cache = {f"b{i}": {name: torch.zeros(shape, dtype=x.dtype,
-                                         device=x.device)
-                       for name in ("k", "v")}
-             for i in range(cfg.layer_period)}
+    cache = init_cache(dataclasses.replace(cfg, kv_layout="batch"), b,
+                       max_len, x.device, x.dtype)
     for j, pp in enumerate(_periods(cfg, params, periods)):
         for i in range(cfg.layer_period):
-            e = cache[f"b{i}"]
-            x = block_prefill(cfg, i, pp[f"b{i}"], x, positions,
-                              e["k"][j], e["v"][j])
+            entry = {name: t[j] for name, t in cache[f"b{i}"].items()}
+            x = block_prefill(cfg, i, pp[f"b{i}"], x, positions, entry)
     return _last_logits(cfg, params, x), cache
 
 
@@ -231,10 +269,19 @@ def block_decode(cfg: ModelConfig, i: int, p, x: torch.Tensor, entry: dict,
                  lengths: torch.Tensor, vm: dict | None = None,
                  write_mask=None):
     """One layer: x [B, 1, d] -> x'.  The entry (this layer's views of the
-    cache: batch-layout ``k``/``v`` or paged ``k_pages``/``v_pages``) is
-    updated in place; rows ``write_mask`` turns off keep their cache, the
-    reference's ``_mask_entry``."""
+    cache: batch-layout ``k``/``v``, paged ``k_pages``/``v_pages`` or
+    Mamba2 ``conv``/``ssd``) is updated in place; rows ``write_mask`` turns
+    off keep their cache, the reference's ``_mask_entry``."""
     h = L.rms_norm(x, p["ln_mix"]["w"], cfg.rms_eps)
+    if cfg.layer_kind(i) != "attn":
+        out, conv, ssd = S.ssm_decode_step(cfg, p["mamba"], h, entry["conv"],
+                                           entry["ssd"])
+        for name, new in (("conv", conv), ("ssd", ssd)):
+            if write_mask is not None:
+                keep = write_mask.view((-1,) + (1,) * (new.dim() - 1))
+                new = torch.where(keep, new, entry[name])
+            entry[name].copy_(new)
+        return _ffn(cfg, i, p, x + out)
     if cfg.kv_layout in ("paged", "pooled"):
         # imported here: the dispatch layer imports this package's layers
         from repro_torch.parallel.paged_attention import paged_decode_block
@@ -243,7 +290,7 @@ def block_decode(cfg: ModelConfig, i: int, p, x: torch.Tensor, entry: dict,
     else:
         out, _, _ = L.decode_attention_block(cfg, p["attn"], h, entry["k"],
                                              entry["v"], lengths, write_mask)
-    return _ffn(cfg, p, x + out)
+    return _ffn(cfg, i, p, x + out)
 
 
 def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache: dict,

@@ -13,7 +13,8 @@ what is control-plane:
     cross-shard merge; one card emulates a multi-shard layout by calling
     the per-shard step once per ``sid``);
   * the host-side page movers (swap, COW) the serving engine hands the
-    BlockManager as ``PageIO`` callbacks.
+    BlockManager as ``PageIO`` callbacks, and the per-slot state movers
+    that carry a swapped sequence's recurrent (Mamba2) state.
 
 Frame ownership is the ``vm`` translation state exported by the serving
 engine's BlockManager (``cache["vm"]``): ``block_table`` [B, max_lpages]
@@ -102,9 +103,9 @@ def paged_entries(cache: dict):
 
 
 def slot_state_entries(cache: dict):
-    """(key, entry) pairs holding per-SLOT state (the batch layout's k/v;
-    SSM conv/ssd rows once that slice lands) rather than shared paged KV --
-    what a slot reset zeroes."""
+    """(key, entry) pairs holding per-SLOT state (the batch layout's k/v,
+    Mamba2 conv/ssd rows) rather than shared paged KV -- what a slot reset
+    zeroes and a swap record carries."""
     for key, entry in cache.items():
         if key.startswith("b") and isinstance(entry, dict) \
                 and "k_pages" not in entry:
@@ -128,6 +129,24 @@ def from_host(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     """Inverse of :func:`to_host`: a device tensor of ``dtype``."""
     t = torch.tensor(a, device=device)
     return t if dtype in _NUMPY_NATIVE else t.view(dtype)
+
+
+def read_slot_state(cache: dict, slot: int) -> dict:
+    """Snapshot a slot's per-slot cache rows (DEVICE -> HOST), so a
+    swapped-out sequence resumes without replaying its recurrent state:
+    ``{key: {name: host rows [n_periods, ...]}}`` (the reference engine's
+    ``_slot_state_read``)."""
+    return {key: {name: to_host(t[:, slot]) for name, t in entry.items()}
+            for key, entry in slot_state_entries(cache)}
+
+
+def write_slot_state(cache: dict, slot: int, state: dict) -> None:
+    """Write a :func:`read_slot_state` snapshot back into ``slot``'s rows,
+    in place (the reference engine's ``_slot_state_write``)."""
+    for key, sub in state.items():
+        for name, rows in sub.items():
+            t = cache[key][name]
+            t[:, slot] = from_host(rows, t.dtype, t.device)
 
 
 def _rows(frames, device) -> torch.Tensor:

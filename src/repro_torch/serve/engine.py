@@ -8,11 +8,14 @@ advanced together by the shared decode step.
 
 With ``kv_layout="batch"`` every slot owns a fixed [Hkv, max_len, hd] row
 of each layer's K/V and there is no frame management at all: no
-BlockManager, no sharing, no preemption (``blocks is None``).  With the
-paged layouts, KV frame ownership and residency sit behind one refcounted
-:class:`repro_torch.emem_vm.BlockManager`: every sequence goes through a
-logical->frame block table that rides in the cache (``cache["vm"]``) into
-the paged-decode kernels.  The two paged ``kv_layout`` values are
+BlockManager, no sharing, no preemption (``blocks is None``).  A Mamba2
+layer keeps per-slot recurrent state (conv window, SSD state) in every
+layout: zeroed when a slot is reused, carried in the swap record, and the
+reason a model with such layers shares no prefixes and retains no pages.
+With the paged layouts, KV frame ownership and residency sit behind one
+refcounted :class:`repro_torch.emem_vm.BlockManager`: every sequence goes
+through a logical->frame block table that rides in the cache
+(``cache["vm"]``) into the paged-decode kernels.  The two paged ``kv_layout`` values are
 allocation policies:
 
   * ``"paged"``  -- *reserved*: every slot permanently owns its worst-case
@@ -56,8 +59,10 @@ from repro_torch.emem_vm import BlockManager, OutOfFrames, PageIO
 from repro_torch.models.model import Model
 from repro_torch.parallel.paged_attention import (cow_copy_pages,
                                                   read_frame_pages,
+                                                  read_slot_state,
                                                   slot_state_entries,
-                                                  write_frame_pages)
+                                                  write_frame_pages,
+                                                  write_slot_state)
 from repro_torch.serve.fused_decode import (fused_decode_run,
                                             sampled_decode_step)
 from repro_torch.serve.telemetry import Telemetry
@@ -146,11 +151,22 @@ class ServeEngine:
         else:
             policy = "reserved"
             self.n_frames = ecfg.slots * self.max_lpages
-        # every layer of the served (dense attention-only) models keeps its
-        # per-token state in the shared KV pages, so prefixes can be shared
+        # prefix sharing skips prefill of shared tokens, which is only
+        # sound when every layer's per-token state lives in the shared KV
+        # pages (no recurrent SSM state to rebuild); swap does not care --
+        # evicted slots' recurrent state rides the swap record.  Retention
+        # rides on prefix sharing, so asking for it on a model that cannot
+        # share is an error, not a silent no-op.
+        attn_only = all(cfg.layer_kind(i) == "attn"
+                        for i in range(cfg.layer_period))
+        if ecfg.retain_frames > 0 and not attn_only:
+            raise ValueError(
+                "retain_frames requires an attention-only model: retained "
+                "pages hold KV only, and an admission that skips prefill "
+                "cannot rebuild recurrent (SSM) state")
         self.blocks = BlockManager(
             self.n_frames, ecfg.slots, self.max_lpages, self.page_slots,
-            policy=policy, share_prefixes=True,
+            policy=policy, share_prefixes=attn_only,
             n_host_frames=ecfg.host_frames,
             retain_frames=ecfg.retain_frames,
             swap_enabled=ecfg.preempt_mode == "swap",
@@ -270,11 +286,11 @@ class ServeEngine:
         if self.blocks is not None:
             tag = id(req)
             if self.blocks.evict_seq(slot, tag) is not None:
-                # resume state: committed KV length and the pending next
-                # token (the served models keep no per-slot state besides
-                # the pages)
+                # resume state: committed KV length, the pending next
+                # token, and the slot's recurrent (SSM) state
                 req._swap = {"tag": tag, "committed": committed,
-                             "next": getattr(req, "_next", None)}
+                             "next": getattr(req, "_next", None),
+                             "slot_state": read_slot_state(self.cache, slot)}
                 self.counters["swapped"] += 1
                 swapped = True
             else:
@@ -399,6 +415,8 @@ class ServeEngine:
         swap = getattr(req, "_swap", None)
         if swap is not None and self.blocks is not None \
                 and self.blocks.has_swap(swap["tag"]):
+            # no _reset_slot: the restore overwrites every per-slot field it
+            # would zero (lengths, committed KV, the whole slot state)
             swap_in0 = self.blocks.counters["swap_in_pages"]
             spill_in0 = self.blocks.counters["spill_in_pages"]
             self.blocks.restore_seq(slot, swap["tag"], toks)
@@ -408,6 +426,7 @@ class ServeEngine:
                 - swap_in0,
                 spill_in_pages=self.blocks.counters["spill_in_pages"]
                 - spill_in0)
+            write_slot_state(self.cache, slot, swap["slot_state"])
             start = int(swap["committed"])
             req._next = swap["next"]
             del req._swap
@@ -417,8 +436,8 @@ class ServeEngine:
             self.lengths = self._to_device(lengths)
             self._kv_committed[slot] = start
             if start >= len(toks):
-                # fully committed: KV and the pending next token were all
-                # restored -- nothing to decode
+                # fully committed: KV, recurrent state and the pending next
+                # token were all restored -- nothing to decode
                 self.counters["admitted"] += 1
                 return
         else:
@@ -456,8 +475,9 @@ class ServeEngine:
         lengths[slot] = 0
         self.lengths = self._to_device(lengths)
         self._kv_committed[slot] = 0
-        # per-slot state (the batch layout's K/V rows) is zeroed, so a
-        # reused slot starts from the state a fresh cache would have
+        # per-slot state (recurrent SSM rows, batch-layout K/V) is zeroed:
+        # recurrent state is cumulative, so a reused slot must not carry the
+        # previous tenant's state into the new sequence
         for _, entry in slot_state_entries(self.cache):
             for t in entry.values():
                 t[:, slot] = 0
