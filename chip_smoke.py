@@ -7,13 +7,17 @@ Builds the port's CUDA kernels from ``src/repro_torch`` and drives the
 port's serving paths at the full width of qwen3-0.6b (random weights from a
 seed): the pooled KV memory (K1, K2), full-sequence prefill (K3) and the
 batch KV layout (K4); then the Mamba2 family at the full width of
-mamba2-780m: prefill through the SSD scan (K5) and recurrent-state serving.
+mamba2-780m: prefill through the SSD scan (K5) and recurrent-state serving;
+then the emulated memory itself at the reference's production scale (2^24
+slots of 128 f32, 8 GiB): EMem reads and writes through the slot gather
+(K7) and EMemVM, whose whole-page reads go through the page gather (K6).
 Each phase prints one JSON line with its seconds:
 
-1. build      -- nvcc builds the four kernel libraries from the checkout's
+1. build      -- nvcc builds the five kernel libraries from the checkout's
                  sources, all at once: paged decode (K1 paged_kv_write, K2
                  paged_gather_attend), K3 flash_attention, K4 flash_decode,
-                 K5 ssd;
+                 K5 ssd, and the gathers (K6 gather_pages, K7
+                 gather_slots);
 2. kernels    -- K1 and K2 each against its plain PyTorch version (the
                  composed oracle, ``kernels/paged_decode/ref.py``) at the
                  main path's shapes (f32 and bf16, 1 and 2 emulated shards,
@@ -61,7 +65,29 @@ Each phase prints one JSON line with its seconds:
                  phase-4 trace on the batch layout in bf16 (its decode is
                  the recurrent step, plain torch; no kernel launches), a
                  profiled decode step gives the device busy share, and in
-                 f32 fused and stepwise runs serve identical tokens.
+                 f32 fused and stepwise runs serve identical tokens;
+12. gather    -- K7 and K6 against their plain versions bit for bit: the
+                 reference tests' sweep shapes, rows of 1, 3 and 4
+                 elements, f32, bf16, int32 and uint8 stores, empty,
+                 repeated and past-the-end indices, a store offset by one
+                 row; then on the 8 GiB store in f32 and bf16 65536 slots
+                 and 16 and 4096 pages; kernel / plain / library / bound
+                 times;
+13. emem      -- random read/write of the 8 GiB store as 1 and as 16
+                 emulated shards, 4096 requests per shard at capacity
+                 factor 1.5 (a write batch repeats addresses), equal to
+                 read_ref/write_ref on a logical copy; at 16 shards and
+                 factor 1.0 the drops are exactly _plan's; us per batch,
+                 requests/s and GB/s; a pointer chase of 1024 dependent
+                 hops, one K7 launch each, ns per hop;
+14. vm        -- EMemVM over the 8 GiB spec, sharded at 1 and 16 shards,
+                 caches of 0 and 16 sets: a seeded sequence of vwrite /
+                 vread, unmap / remap, protection, swap-outs that spill,
+                 faults under a full pool, flush, bit-identical to an
+                 unsharded twin whose gathers take the plain route (the
+                 single-view read_ref/write_ref); every vread launched
+                 K7 once and K6 once per cache fill and swap-out; vread /
+                 vwrite us and the hit rate.
 
 Then it prints the kernels' JSON line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -1230,10 +1256,458 @@ def phase_ssm_serve(dev):
     return res
 
 
+# -- phase 12 ------------------------------------------------------------------
+
+#: the reference's production-scale emulated memory
+#: (benchmarks/emem_bench.py:36-38): 2^24 slots of 128 f32 in pages of 256
+#: slots, 8 GiB on the card, 65536 pages; used as 1 and as 16 shards
+EMEM_SPEC = dict(n_slots=1 << 24, width=128, page_slots=256)
+EMEM_SHARDS = (1, 16)
+#: requests per shard and capacity factor of emem_bench.py:38-39
+EMEM_REQUESTS, EMEM_CF = 4096, 1.5
+#: dependent hops of the pointer chase (examples/emulated_memory_demo.py)
+CHASE_HOPS = 1024
+#: K7 and K6 at the paths' shapes: 65536 slots (an emem batch at 16
+#: shards), 16 pages (a 16-set cache fill), 4096 pages (bulk)
+GATHER_SLOTS, GATHER_FILL, GATHER_BULK = 65536, 16, 4096
+
+
+def emem_store(dev, seed: int, dtype=None):
+    """The production-scale store [65536, 256, 128], filled from a seeded
+    generator on the card."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (EMEM_SPEC["n_slots"] // EMEM_SPEC["page_slots"],
+             EMEM_SPEC["page_slots"], EMEM_SPEC["width"])
+    data = torch.empty(shape, dtype=torch.float32, device=dev)
+    data.normal_(generator=g)
+    return data if dtype is None else data.to(dtype)
+
+
+def same_bits(a, b) -> bool:
+    import torch
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(torch.uint8),
+                            b.contiguous().view(torch.uint8)))
+
+
+def check_gathers(pages, slots, ids, what):
+    """K7 and K6 against their plain versions, bit for bit."""
+    import torch
+    from repro_torch.kernels.paged_decode import gather as K67
+    from repro_torch.kernels.paged_decode import gather_ref
+    dev = pages.device
+    slots = torch.as_tensor(slots, dtype=torch.int32, device=dev)
+    ids = torch.as_tensor(ids, dtype=torch.int32, device=dev)
+    for name, kern, plain, idx in (
+            ("K7", K67.gather_slots, gather_ref.gather_slots, slots),
+            ("K6", K67.gather_pages, gather_ref.gather_pages, ids)):
+        got, want = kern(pages, idx), plain(pages, idx)
+        torch.cuda.synchronize()
+        if not same_bits(got, want):
+            raise AssertionError(f"{name} differs from its plain version: "
+                                 f"{what}, {pages.dtype} "
+                                 f"{tuple(pages.shape)}")
+
+
+def phase_gather(dev):
+    """K7 and K6 against their plain versions bit for bit: the reference
+    tests' sweep shapes (tests/test_kernels.py:21-42) with rows of 1, 3 and
+    4 elements, f32, bf16, an int32 page-table store and a uint8 store
+    (every copy unit, 16 bytes down to 1), empty (-1), repeated and
+    past-the-end indices; then the paths' shapes on the 8 GiB store, in f32
+    and bf16, and their times."""
+    import torch
+    rng = np.random.default_rng(89)
+    for dtype in (torch.float32, torch.bfloat16, torch.int32, torch.uint8):
+        for n_pages, ps, w in ((4, 8, 16), (8, 16, 4), (2, 32, 128),
+                               (6, 8, 1), (5, 4, 3), (3, 128, 1)):
+            pages = torch.tensor(rng.normal(size=(n_pages, ps, w)) * 100,
+                                 device=dev).to(dtype)
+            n = n_pages * ps
+            slots = np.concatenate([rng.integers(0, n, 17),
+                                    [-1, 3, 3, n - 1, n, 2 ** 30, -7]])
+            ids = [n_pages - 1, -1, 0, 2, 0, n_pages, -5]
+            check_gathers(pages, slots, ids, "sweep")
+            # a store that starts one row in: other alignments
+            check_gathers(pages.view(n, 1, w)[1:], slots % (n - 1),
+                          [0, 3, -1], "offset store")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        store = emem_store(dev, 97, dtype)
+        n_pages, ps, _ = store.shape
+        g = torch.Generator(device=dev).manual_seed(101)
+        slots = torch.randint(0, n_pages * ps, (GATHER_SLOTS,), generator=g,
+                              device=dev, dtype=torch.int32)
+        slots[::97] = -1
+        slots[1::89] = slots[0]
+        for p in (GATHER_FILL, GATHER_BULK):
+            ids = torch.randint(0, n_pages, (p,), generator=g, device=dev,
+                                dtype=torch.int32)
+            ids[3] = -1
+            check_gathers(store, slots, ids, f"paths' shapes, {p} pages")
+        if dtype == torch.float32:
+            out = time_gathers(store, slots, g)
+        del store
+        torch.cuda.empty_cache()
+    return {"k6": 0.0, "k7": 0.0}, out
+
+
+def time_gathers(store, slots, g):
+    """Kernel, plain and library times of K7 (65536 slots) and K6 (16 and
+    4096 pages) on the 8 GiB f32 store; every index is drawn uniformly, so
+    every row or page is read cold.  The library call is ``index_select``
+    on indices clamped beforehand: it does not zero the empty ones, so it
+    is a yardstick, not the same function."""
+    import torch
+    from repro_torch.kernels.paged_decode import gather as K67
+    from repro_torch.kernels.paged_decode import gather_ref
+    n_pages, ps, w = store.shape
+    flat = store.view(-1, w)
+    row = w * store.element_size()
+    out = {"k7": timed(lambda: K67.gather_slots(store, slots)),
+           "k7_plain": timed(lambda: gather_ref.gather_slots(store, slots))}
+    clamped = slots.long().clamp(min=0)
+    out["k7_library"] = timed(lambda: flat.index_select(0, clamped))
+    k7_bytes = slots.numel() * (4 + 2 * row)
+    for p, key in ((GATHER_BULK, "k6"), (GATHER_FILL, "k6_fill")):
+        ids = torch.randint(0, n_pages, (p,), generator=g, device=store.device,
+                            dtype=torch.int32)
+        out[key] = timed(lambda: K67.gather_pages(store, ids), iters=20)
+        out[f"{key}_plain"] = timed(
+            lambda: gather_ref.gather_pages(store, ids), iters=20)
+        lib_ids = ids.long()
+        out[f"{key}_library"] = timed(lambda: store.index_select(0, lib_ids),
+                                      iters=20)
+        out[f"{key}_bytes"] = p * (4 + 2 * ps * row)
+        out[f"{key}_bound_ms"] = out[f"{key}_bytes"] / HBM_BYTES_PER_S * 1e3
+    out.update(k7_bytes=k7_bytes,
+               k7_bound_ms=k7_bytes / HBM_BYTES_PER_S * 1e3)
+    return out
+
+
+# -- phase 13 ------------------------------------------------------------------
+
+def wall_us(fn, iters: int = 10):
+    """Median host time of ``fn()`` in microseconds, each call ending in a
+    device synchronise (end to end, as a caller waits for it)."""
+    import torch
+    fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e6)
+    return float(np.median(times))
+
+
+def emem_batch(dev, spec, g, cf):
+    """A batch of ``EMEM_REQUESTS`` uniform requests per shard with repeated
+    addresses, its values, and the per-request drop mask of the port's
+    ``_plan`` at capacity factor ``cf``."""
+    import torch
+    from repro_torch.core import emem
+    r = EMEM_REQUESTS * spec.n_shards
+    addrs = torch.randint(0, spec.n_slots, (r,), generator=g, device=dev,
+                          dtype=torch.int32)
+    addrs[r // 2:r // 2 + 64] = addrs[:64]          # repeated in one batch
+    addrs[7::1024] = addrs[3]
+    vals = torch.randn((r, spec.width), generator=g, device=dev)
+    cap = emem.capacity_for(spec, EMEM_REQUESTS, cf)
+    valid = (emem._plan(spec, addrs.view(spec.n_shards, -1), cap).valid
+             .reshape(-1) if spec.n_shards > 1
+             else torch.ones(r, dtype=torch.bool, device=dev))
+    return addrs, vals, valid
+
+
+def phase_emem(dev):
+    """Random read/write of the 8 GiB store as 1 and as 16 emulated shards,
+    4096 requests per shard at capacity factor 1.5, held against
+    read_ref/write_ref on a logical copy (a write batch repeats addresses);
+    at 16 shards and factor 1.0 the overflow drops exactly the requests the
+    port's _plan marks invalid; then a pointer chase of 1024 dependent hops,
+    one K7 launch each.  Returns (K7 launches of the driven reads and
+    writes, results)."""
+    import torch
+    from repro_torch.core import emem
+    from repro_torch.kernels.paged_decode import gather as K67
+    res, launches = {}, 0
+    for n_shards in EMEM_SHARDS:
+        spec = emem.EMemSpec(**EMEM_SPEC, n_shards=n_shards)
+        data = emem_store(dev, 103)                 # physical page order
+        logical = emem.to_logical(spec, data)
+        g = torch.Generator(device=dev).manual_seed(107 + n_shards)
+        cfs = (EMEM_CF, 1.0) if n_shards > 1 else (EMEM_CF,)
+        for cf in cfs:
+            addrs, vals, valid = emem_batch(dev, spec, g, cf)
+            K67.reset_launch_counts()
+            got = emem.read(spec, data, addrs, cf)
+            emem.write(spec, data, addrs, vals, cf)
+            torch.cuda.synchronize()
+            launches += K67.LAUNCHES["gather_slots"]
+            want = emem.read_ref(spec, logical, addrs).masked_fill(
+                ~valid[:, None], 0)
+            if not same_bits(got, want):
+                raise AssertionError(f"emem read differs from read_ref: "
+                                     f"{n_shards} shards, cf {cf}")
+            emem.write_ref(spec, logical, addrs[valid], vals[valid])
+            if not same_bits(emem.to_logical(spec, data), logical):
+                raise AssertionError(f"emem write differs from write_ref: "
+                                     f"{n_shards} shards, cf {cf}")
+            dropped = int((~valid).sum())
+            if cf == 1.0 and not dropped:
+                raise AssertionError("capacity factor 1.0 dropped nothing")
+            res[f"s{n_shards}_cf{cf}_dropped"] = dropped
+        addrs, vals, _ = emem_batch(dev, spec, g, EMEM_CF)
+        n = addrs.numel()
+        payload = n * spec.width * 4
+        us_r = wall_us(lambda: emem.read(spec, data, addrs, EMEM_CF))
+        us_w = wall_us(lambda: emem.write(spec, data, addrs, vals, EMEM_CF))
+        dev_r, _ = device_profile(lambda: emem.read(spec, data, addrs,
+                                                    EMEM_CF), iters=10)
+        dev_w, _ = device_profile(lambda: emem.write(spec, data, addrs, vals,
+                                                     EMEM_CF), iters=10)
+        res[f"s{n_shards}"] = {
+            "requests": n, "read_us": us_r, "write_us": us_w,
+            "read_device_us": None if dev_r is None else dev_r * 1e3,
+            "write_device_us": None if dev_w is None else dev_w * 1e3,
+            "read_requests_per_s": n / us_r * 1e6,
+            "write_requests_per_s": n / us_w * 1e6,
+            "read_gb_per_s": payload / us_r / 1e3,
+            "write_gb_per_s": payload / us_w / 1e3,
+            "stats": emem.dispatch_stats(spec, EMEM_REQUESTS, EMEM_CF)}
+        del logical
+        if n_shards == 1:
+            res["chase"], hops = pointer_chase(dev, spec, data)
+            launches += hops
+        del data
+        torch.cuda.empty_cache()
+    return launches, res
+
+
+def pointer_chase(dev, spec, data):
+    """The sequential client of examples/emulated_memory_demo.py:33-55 on
+    the 8 GiB store: column 0 of every slot holds the next address (a
+    seeded permutation, exact in f32 below 2^24), and each hop reads one
+    slot through emem.read -- one K7 launch -- with the address kept on the
+    card.  Returns (results, K7 launches)."""
+    import torch
+    from repro_torch.core import emem
+    from repro_torch.kernels.paged_decode import gather as K67
+    g = torch.Generator(device=dev).manual_seed(109)
+    perm = torch.randperm(spec.n_slots, generator=g, device=dev)
+    data.view(-1, spec.width)[:, 0] = perm.float()
+
+    def chase():
+        addr = torch.zeros(1, dtype=torch.int32, device=dev)
+        for _ in range(CHASE_HOPS):
+            addr = emem.read(spec, data, addr)[:, 0].to(torch.int32)
+        return addr
+    chase()                                         # warm up
+    torch.cuda.synchronize()
+    K67.reset_launch_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t = time.perf_counter()
+    start.record()
+    addr = chase()
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = K67.LAUNCHES["gather_slots"]
+    if launches != CHASE_HOPS:
+        raise AssertionError(f"pointer chase: {launches} K7 launches for "
+                             f"{CHASE_HOPS} hops")
+    dev_ms, _ = device_profile(chase, iters=1, warmup=0)
+    host = perm.cpu().numpy()
+    a = 0
+    for _ in range(CHASE_HOPS):
+        a = int(host[a])
+    if int(addr[0]) != a:
+        raise AssertionError(f"pointer chase ended at {int(addr[0])}, the "
+                             f"host's chase at {a}")
+    return {"hops": CHASE_HOPS, "ns_per_hop": wall / CHASE_HOPS * 1e9,
+            "event_ns_per_hop": start.elapsed_time(end) / CHASE_HOPS * 1e6,
+            "device_ns_per_hop": (None if dev_ms is None
+                                  else dev_ms / CHASE_HOPS * 1e6),
+            "end": a}, launches
+
+
+# -- phase 14 ------------------------------------------------------------------
+
+#: EMemVM over the 8 GiB spec: 4096 requests per batch, caches of 0 and 16
+#: sets (benchmarks/vm_bench.py:63-69), a host store of 8 pages that spills.
+#: The virtual space is twice the physical one (tests/test_emem_vm.py's
+#: make_vm), so that the 65535 usable frames can all be mapped while pages
+#: are swapped out: with 65535 virtual pages the pool can never be full
+#: while one is on the host, and no fault would have to evict.
+VM_REQUESTS, VM_CACHE_SETS, VM_HOST_PAGES = 4096, (0, 16), 8
+VM_ROUNDS = 5
+
+
+def vm_run(vm, seed: int, check_launches: bool):
+    """One seeded sequence on ``vm``: the whole pool mapped, VM_ROUNDS of
+    vwrite/vread/vread over mapped pages (repeated addresses in each write),
+    unmap of 64 pages and remap onto their frames, a read-only page whose
+    writes drop, 12 swap-outs through the 8-page host store into the spill
+    tier, 12 new mappings (the pool full again), reads that fault 8 pages
+    back (each evicting an LRU victim), a write, flush.  Returns (vread
+    outputs, counters, stats, median vread us, median vwrite us, K7 and K6
+    launches).  With ``check_launches`` every vread must launch K7 once and
+    K6 once per cache fill and per swap-out it caused; every vwrite K6
+    once per swap-out and K7 never; every swap-out K6 once."""
+    import torch
+    from repro_torch.emem_vm import PROT_R
+    from repro_torch.kernels.paged_decode import gather as K67
+    rng = np.random.default_rng(seed)
+    cfg, dev = vm.cfg, vm.device
+    ps, w = cfg.spec.page_slots, cfg.spec.width
+    usable = vm.allocator.n_frames
+    outs, times = [], {"vread": [], "vwrite": []}
+    tally = {"gather_slots": 0, "gather_pages": 0}
+
+    def op(name, fn, k7, fills, *args):
+        swaps = vm.swap_counters["swap_outs"]
+        K67.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append((time.perf_counter() - t) * 1e6)
+        want = {"gather_slots": k7, "gather_pages":
+                fills + vm.swap_counters["swap_outs"] - swaps}
+        if check_launches and K67.LAUNCHES != want:
+            raise AssertionError(f"{name} launched {K67.LAUNCHES}, not {want}")
+        for k, n in K67.LAUNCHES.items():
+            tally[k] += n
+        return out
+
+    def vread(addrs):
+        outs.append(op("vread", vm.vread, 1, 1 if cfg.cache_sets else 0,
+                       addrs))
+
+    def vwrite(addrs, vals):
+        op("vwrite", vm.vwrite, 0, 0, addrs, vals)
+
+    def batch():
+        return torch.tensor(rng.integers(0, usable * ps, VM_REQUESTS),
+                            dtype=torch.int32, device=dev)
+
+    def values(n=VM_REQUESTS):
+        return torch.tensor(rng.normal(size=(n, w)), dtype=torch.float32,
+                            device=dev)
+
+    vm.map_range(0, usable)
+    for _ in range(VM_ROUNDS):
+        addrs = batch()
+        addrs[1:64] = addrs[0]
+        vwrite(addrs, values())
+        vread(addrs)
+        vread(batch())
+    for vp in range(0, 128, 2):
+        vm.unmap_page(vp)
+    vm.map_range(cfg.n_vpages - 64, 64)
+    vm.protect(1, PROT_R)
+    vwrite(torch.arange(ps, dtype=torch.int32, device=dev) + ps, values(ps))
+    vread(batch())
+    for vp in range(201, 213):
+        op("swap_out", vm.swap_out, 0, 0, vp)
+    vm.map_range(cfg.n_vpages - 128, 12)           # the pool full again
+    for first in (201, 205):                       # spilled, then host pages
+        addrs = batch()
+        addrs[:4] = torch.arange(first, first + 4, device=dev) * ps + 3
+        vread(addrs)
+    vwrite(batch(), values())
+    op("flush", vm.flush, 0, 0)
+    return (outs, vm.counters(), vm.stats(), float(np.median(times["vread"])),
+            float(np.median(times["vwrite"])), tally)
+
+
+def vm_profile(vm):
+    """Device time of one vread and one vwrite of VM_REQUESTS uniform
+    requests over the mapped pages (torch.profiler), and the kernels that
+    spend most of it."""
+    import torch
+    g = torch.Generator(device=vm.device).manual_seed(127)
+    addrs = torch.randint(0, vm.allocator.n_frames * vm.cfg.spec.page_slots,
+                          (VM_REQUESTS,), generator=g, device=vm.device,
+                          dtype=torch.int32)
+    vals = torch.randn((VM_REQUESTS, vm.cfg.spec.width), generator=g,
+                       device=vm.device)
+    out = {}
+    for name, fn in (("vread", lambda: vm.vread(addrs)),
+                     ("vwrite", lambda: vm.vwrite(addrs, vals))):
+        ms, by_name = device_profile(fn, iters=10)
+        ops = by_name.pop("device_ops_per_call", None)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+        out[f"{name}_device_us"] = None if ms is None else ms * 1e3
+        out[f"{name}_device_ops"] = ops
+        out[f"{name}_top_us"] = {k[:60]: v * 1e3 for k, v in top}
+    return out
+
+
+def phase_vm(dev):
+    """EMemVM over the 8 GiB spec, sharded at 1 and 16 emulated shards,
+    caches of 0 and 16 sets: the seeded sequence of vm_run on the sharded
+    VM, whose gathers are K7 and K6, and on an unsharded twin (one logical
+    store, the reference's read_ref/write_ref route) whose gathers take
+    their plain versions; vread outputs, counters(), stats() and the final
+    store (in logical page order) bit-identical.  Returns ({kernel:
+    launches of the sharded VMs' runs}, results)."""
+    import torch
+    from repro_torch.core import emem
+    from repro_torch.emem_vm import EMemVM, VMConfig
+    from repro_torch.kernels.paged_decode import gather_ops, gather_ref
+    launches = {"gather_slots": 0, "gather_pages": 0}
+    res = {}
+    for n_shards in EMEM_SHARDS:
+        spec = emem.EMemSpec(**EMEM_SPEC, n_shards=n_shards)
+        for sets in VM_CACHE_SETS:
+            cfg = VMConfig(spec=spec, n_vpages=2 * spec.n_pages,
+                           cache_sets=sets, n_host_pages=VM_HOST_PAGES)
+            vm = EMemVM(cfg, sharded=True, device=dev)
+            t = time.monotonic()
+            kern = vm_run(vm, 113, check_launches=True)
+            run_s = time.monotonic() - t
+            for k, n in kern[5].items():
+                launches[k] += n
+            twin = EMemVM(cfg, sharded=False, device=dev)
+            saved = gather_ops.gather_slots, gather_ops.gather_pages
+            gather_ops.gather_slots = gather_ref.gather_slots
+            gather_ops.gather_pages = gather_ref.gather_pages
+            try:
+                plain = vm_run(twin, 113, check_launches=False)
+            finally:
+                gather_ops.gather_slots, gather_ops.gather_pages = saved
+            for i, (a, b) in enumerate(zip(kern[0], plain[0])):
+                if not same_bits(a, b):
+                    raise AssertionError(f"vread {i} differs from the plain "
+                                         f"route: {n_shards} shards, {sets} "
+                                         f"sets")
+            if kern[1:3] != plain[1:3] or not same_bits(
+                    emem.to_logical(spec, vm.data), twin.data):
+                raise AssertionError(
+                    f"EMemVM differs from the plain route: {n_shards} shards, "
+                    f"{sets} sets: {kern[1:3]} vs {plain[1:3]}")
+            c = kern[1]
+            prof = vm_profile(vm)
+            res[f"s{n_shards}_sets{sets}"] = {
+                "vread_us": kern[3], "vwrite_us": kern[4], **prof,
+                "hit_rate": c["hit_rate"], "hits": c["hits"],
+                "misses": c["misses"], "faults": c["faults"],
+                "swap_outs": c["swap_outs"], "spill_outs": c["spill_outs"],
+                "spill_ins": c["spill_ins"], "vreads": len(kern[0]),
+                "run_s": run_s}
+            del vm, twin, kern, plain
+            torch.cuda.empty_cache()
+    return launches, res
+
+
 # -- main -----------------------------------------------------------------------
 
 PHASES = ("build,kernels,teacher,profile,serve,tokens,flash,prefill,batch,"
-          "ssd,ssm_prefill,ssm_serve")
+          "ssd,ssm_prefill,ssm_serve,gather,emem,vm")
 #: the kernels' libraries, sources and the TPU kernels they replace
 KERNELS = (
     ("paged_kv_write", "k1", "src/repro_torch/kernels/paged_decode/csrc/"
@@ -1246,6 +1720,10 @@ KERNELS = (
      "flash_decode.cu", "src/repro/kernels/paged_decode/flash.py:84"),
     ("ssd", "k5", "src/repro_torch/kernels/mamba2_ssd/csrc/ssd.cu",
      "src/repro/kernels/mamba2_ssd/kernel.py:76"),
+    ("gather_pages", "k6", "src/repro_torch/kernels/paged_decode/csrc/"
+     "gather.cu", "src/repro/kernels/paged_decode/gather.py:84"),
+    ("gather_slots", "k7", "src/repro_torch/kernels/paged_decode/csrc/"
+     "gather.cu", "src/repro/kernels/paged_decode/gather.py:46"),
 )
 
 
@@ -1255,8 +1733,9 @@ def phase_build():
     from repro_torch.kernels.flash_attention import kernel as K3
     from repro_torch.kernels.mamba2_ssd import kernel as K5
     from repro_torch.kernels.paged_decode import flash as K4
+    from repro_torch.kernels.paged_decode import gather as K67
     from repro_torch.kernels.paged_decode import kernel as K
-    mods = (K, K3, K4, K5)
+    mods = (K, K3, K4, K5, K67)
     with ThreadPoolExecutor(len(mods)) as pool:
         built = list(pool.map(lambda m: m.build(), mods))
     return {m.LIBRARY: {"library": os.path.relpath(path, ROOT),
@@ -1349,6 +1828,24 @@ def main(argv=None) -> int:
                   **res})
     if "ssm_serve" in phases:
         run("ssm_serve", phase_ssm_serve, dev)
+    if "gather" in phases:
+        t = time.monotonic()
+        e, timing = phase_gather(dev)
+        err.update(e)
+        tm.update(timing)
+        emit({"phase": "gather", "seconds": time.monotonic() - t,
+              "max_abs_err": e, **timing})
+    if "emem" in phases:
+        t = time.monotonic()
+        launches["gather_slots"], res = phase_emem(dev)
+        emit({"phase": "emem", "seconds": time.monotonic() - t, **res})
+    if "vm" in phases:
+        t = time.monotonic()
+        vm_launches, res = phase_vm(dev)
+        launches["gather_slots"] += vm_launches["gather_slots"]
+        launches["gather_pages"] = vm_launches["gather_pages"]
+        emit({"phase": "vm", "seconds": time.monotonic() - t,
+              "launches": vm_launches, **res})
 
     def ms(key):
         # the device time of timed(); the event-timed loop where neither

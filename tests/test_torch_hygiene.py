@@ -30,9 +30,12 @@ def test_port_imports_no_jax_and_no_reference():
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
-    """With no GPU, Model, the weight bridge and the serve CLI raise unless
-    the caller asks for the CPU; asking for it works."""
+    """With no GPU, Model, the weight bridge, the serve CLI, the emulated
+    memory and its VM raise unless the caller asks for the CPU; asking for
+    it works."""
     from repro_torch.configs import get_smoke_config
+    from repro_torch.core import emem
+    from repro_torch.emem_vm import EMemVM, VMConfig
     from repro_torch.launch import serve
     from repro_torch.models.model import Model
     from repro_torch.weights import from_jax_params
@@ -45,3 +48,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--smoke", "--requests", "1"])
     assert Model(cfg, device="cpu").device.type == "cpu"
+    spec = emem.EMemSpec(n_slots=256, width=4, page_slots=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        emem.create(spec)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EMemVM(VMConfig(spec=spec, n_vpages=8))
+    assert emem.create(spec, device="cpu").device.type == "cpu"
+    vm = EMemVM(VMConfig(spec=spec, n_vpages=8, cache_sets=2), device="cpu")
+    assert vm.data.device.type == vm.cache["data"].device.type == "cpu"
