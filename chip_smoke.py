@@ -39,10 +39,18 @@ Each phase prints one JSON line with its seconds:
                  flash_ops.decode_attention_partial, at the prefill and
                  batch-serving shapes (f32 and bf16, windows None and 64,
                  tail queries, head groups 1, 2 and 4, head dims 64 and 128,
-                 S = 200), with kernel / plain / library / bound times;
+                 S = 200): K3 through the variant its wrapper picks (the
+                 tensor cores in bf16 at D 64 and 128), the CUDA-core
+                 variant forced at the prefill shape, a bf16 head dim of 96
+                 that goes to the CUDA cores by choice and that a forced
+                 tensor-core launch refuses; K4 at its split edges (lengths
+                 63, 64, 65, 512, a window across an edge, S = 200) and two
+                 launches bit for bit; kernel / plain / library / bound
+                 times, and SDPA's own error against ref.mha beside K3's;
 7. prefill    -- full-width Model.prefill of 8 prompts of 511 tokens with
                  the kernel (attn_impl "pallas") and with the plain oracle
-                 ("ref"), f32 and bf16: logits and K/V cache agree, and in
+                 ("ref"), f32 and bf16: logits and K/V cache agree, the bf16
+                 prefill runs K3 on the tensor cores once per layer, and in
                  f32 prefill(510) plus one batch-layout decode step (K4)
                  reproduces prefill(511)'s logits;
 8. batch      -- the full-width engine + scheduler serve the phase-4 trace
@@ -650,11 +658,11 @@ def phase_tokens(dev):
 
 
 #: each wrapper's CUDA kernel, by the symbol the profiler reports
-KERNEL_SYMBOLS = {"paged_kv_write": "kv_write_kernel",
-                  "paged_gather_attend": "gather_attend_kernel",
-                  "flash_attention": "fa_kernel",
-                  "flash_decode": "flash_decode_kernel",
-                  "ssd": "ssd_kernel"}
+KERNEL_SYMBOLS = {"paged_kv_write": ("kv_write_kernel",),
+                  "paged_gather_attend": ("gather_attend_kernel",),
+                  "flash_attention": ("fa_kernel", "fa_tc_kernel"),
+                  "flash_decode": ("flash_decode_kernel",),
+                  "ssd": ("ssd_kernel",)}
 
 
 def phase_profile(dev, layout: str, steps: int = 10, cfg=None):
@@ -707,8 +715,9 @@ def phase_profile(dev, layout: str, steps: int = 10, cfg=None):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     out.update(busy_share=dev_ms / wall_ms, device_ops_per_step=ops,
                kernel_ms_per_step={
-                   name: sum(v for k, v in by_name.items() if sym in k)
-                   for name, sym in KERNEL_SYMBOLS.items()},
+                   name: sum(v for k, v in by_name.items()
+                             if any(sym in k for sym in syms))
+                   for name, syms in KERNEL_SYMBOLS.items()},
                top_kernels_ms_per_step=[[k[:80], v] for k, v in top])
     return out
 
@@ -736,26 +745,38 @@ def fa_case(seed, dtype, dev, b=8, hq=16, hkv=8, sq=512, skv=512, d=128):
     return t(b, hq, sq, d), t(b, hkv, skv, d), t(b, hkv, skv, d)
 
 
-def check_k3(q, k, v, causal, window, err):
-    """K3 against ref.mha on one input set."""
+def check_k3(q, k, v, causal, window, err, variant=None):
+    """K3 against ref.mha on one input set, through the variant its wrapper
+    picks (which must be ``variant_for``'s) or the one named; returns the
+    variant that ran."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as K3
     from repro_torch.kernels.flash_attention import ref
-    out = K3.flash_attention(q, k, v, causal=causal, window=window)
+    tc = K3.LAUNCHES["flash_attention_tc"]
+    out = K3.flash_attention(q, k, v, causal=causal, window=window,
+                             variant=variant)
+    ran = ("tensor_core" if K3.LAUNCHES["flash_attention_tc"] > tc
+           else "cuda_core")
+    if ran != (variant or K3.variant_for(q.dtype, q.shape[-1])):
+        raise AssertionError(f"K3 ran {ran} for {q.dtype} D={q.shape[-1]}, "
+                             f"asked {variant}")
     want = ref.mha(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     dtype = str(q.dtype).split(".")[1]
-    close(out, want, dtype, f"{dtype} q {tuple(q.shape)} k {tuple(k.shape)} "
-          f"causal={causal} window={window}", err, "k3")
+    close(out, want, dtype, f"{dtype} {ran} q {tuple(q.shape)} k "
+          f"{tuple(k.shape)} causal={causal} window={window}", err, "k3")
+    return ran
 
 
-def fd_case(seed, dtype, dev, g=G, d=D, s=512, b=B, hkv=HKV):
+def fd_case(seed, dtype, dev, g=G, d=D, s=512, b=B, hkv=HKV, lengths=None):
     """K4 inputs: q [B, Hkv*G, D], k/v [B, Hkv, S, D], ragged lengths with
-    an empty row and a one-token row."""
+    an empty row and a one-token row (or ``lengths``, whose row 1 is 0)."""
     import torch
     rng = np.random.default_rng(seed)
-    lengths = rng.integers(2, s + 1, b).astype(np.int32)
-    lengths[1], lengths[2] = 0, 1
+    if lengths is None:
+        lengths = rng.integers(2, s + 1, b).astype(np.int32)
+        lengths[1], lengths[2] = 0, 1
+    lengths = np.asarray(lengths, np.int32)
 
     def t(*shape):
         return torch.tensor(rng.normal(size=shape).astype(np.float32),
@@ -787,29 +808,114 @@ def check_k4(x, window, err):
         raise AssertionError(f"K4: empty row is not (0, -1e30, 0): {what}")
 
 
+#: K4 lengths at its 64-position split edges (row 1 empty), for S = 512 and
+#: S = 200; window 40 straddles an edge in rows 3 and 7 (S = 512), 4 and 5
+#: (S = 200)
+FD_EDGE_LENGTHS = {512: [63, 0, 64, 65, 512, 1, 128, 200],
+                   200: [200, 0, 63, 64, 65, 129, 150, 1]}
+
+
+def same_k4_bits(x, window):
+    """Two K4 launches on the same inputs give the same bits."""
+    import torch
+    from repro_torch.kernels.paged_decode import flash as K4
+    q, k, v, lengths, _ = x
+    qg = q.reshape(q.shape[0], k.shape[1], -1, q.shape[-1])
+    a = K4.flash_decode(qg, k, v, lengths, window=window)
+    c = K4.flash_decode(qg, k, v, lengths, window=window)
+    torch.cuda.synchronize()
+    return all(torch.equal(s.view(torch.int16 if s.element_size() == 2
+                                  else torch.int32),
+                           t.view(torch.int16 if t.element_size() == 2
+                                  else torch.int32))
+               for s, t in zip(a, c))
+
+
 def phase_flash(dev):
     import torch
+    from repro_torch.kernels.flash_attention import kernel as K3
     err = {"k3": 0.0, "k4": 0.0}
+    ran = {"tensor_core": 0, "cuda_core": 0}
     for dt in (torch.float32, torch.bfloat16):
+        def k3(*a, **kw):
+            ran[check_k3(*a, err, **kw)] += 1
         q, k, v = fa_case(31, dt, dev)                 # the prefill shapes
         for causal, window in ((True, None), (True, 64), (False, None)):
-            check_k3(q, k, v, causal, window, err)
-        check_k3(q[:, :, -100:].contiguous(), k, v, True, None, err)  # tail
-        check_k3(q[:, :, -100:].contiguous(), k, v, True, 64, err)
+            k3(q, k, v, causal, window)
+        k3(q[:, :, -100:].contiguous(), k, v, True, None)  # tail queries
+        k3(q[:, :, -100:].contiguous(), k, v, True, 64)
         for hq, hkv, d in ((8, 8, 128), (16, 4, 128), (16, 8, 64)):
-            check_k3(*fa_case(37, dt, dev, b=2, hq=hq, hkv=hkv, d=d), True,
-                     None, err)
+            k3(*fa_case(37, dt, dev, b=2, hq=hq, hkv=hkv, d=d), True, None)
         for causal in (True, False):
-            check_k3(*fa_case(41, dt, dev, b=2, sq=200, skv=200), causal, 64,
-                     err)
+            k3(*fa_case(41, dt, dev, b=2, sq=200, skv=200), causal, 64)
+        q64, k64, v64 = fa_case(39, dt, dev, d=64)     # D 64 at full size
+        for window in (None, 64):
+            k3(q64, k64, v64, True, window)
+        if dt == torch.bfloat16:
+            # the CUDA-core variant, forced, at the prefill shape
+            for causal, window in ((True, None), (True, 64)):
+                k3(q, k, v, causal, window, variant="cuda_core")
+            # a head dim the tensor-core tile does not take: the CUDA cores
+            # by choice, and a forced tensor-core launch raises
+            x96 = fa_case(45, dt, dev, b=2, d=96)
+            if K3.variant_for(dt, 96) != "cuda_core":
+                raise AssertionError("K3 picks the tensor cores for D = 96")
+            k3(*x96, True, None)
+            try:
+                K3.flash_attention(*x96, variant="tensor_core")
+            except ValueError:
+                pass
+            else:
+                raise AssertionError("K3's tensor-core variant took D = 96")
         x = fd_case(43, dt, dev)                       # the serving shapes
         for window in (None, 64):
             check_k4(x, window, err)
+        # head dims 100 and 90: rows that 16-byte units do not divide (8-
+        # and 4-byte units in bf16, 16 and 8 in f32)
         for g, d, s in ((1, 128, 512), (4, 128, 512), (2, 64, 512),
-                        (2, 128, 200)):
+                        (2, 128, 200), (2, 100, 200), (2, 90, 130)):
             for window in (None, 64):
                 check_k4(fd_case(47, dt, dev, g=g, d=d, s=s), window, err)
-    return err, time_flash(dev)
+        other = torch.bfloat16 if dt == torch.float32 else torch.float32
+        check_k4((x[0].to(other), *x[1:]), None, err)  # q and kv dtypes differ
+        for s, lengths in FD_EDGE_LENGTHS.items():     # K4's split edges
+            xe = fd_case(49, dt, dev, s=s, lengths=lengths)
+            for window in (None, 40):
+                check_k4(xe, window, err)
+        for window in (None, 64):
+            if not same_k4_bits(x, window):
+                raise AssertionError(f"K4: two launches differ ({dt}, "
+                                     f"window {window})")
+    return err, {"k3_cases_by_variant": ran, **time_flash(dev)}
+
+
+def p_rounding_fail_share(q, k, v, want):
+    """Why K3 splits p before p.v: the share of bf16 outputs outside the
+    phase-6 tolerance of ``want`` (ref.mha, causal) when the probabilities
+    (taken from the final row max, as ref.mha does) are rounded to bf16 or
+    to fp16 before p.v, or split into bf16 hi + lo; p.v and the division
+    by l in f32, the output rounded to bf16 as ref.mha rounds it."""
+    import torch
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, sq, d).float()
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * d ** -0.5
+    mask = fa_ref.attention_mask(sq, skv, causal=True, window=None,
+                                 device=q.device)
+    logits = torch.where(mask, logits, fa_ref.NEG_INF)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    del logits
+    hi = p.bfloat16().float()
+    share = {}
+    for name, pr in (("bf16", hi), ("fp16", p.half().float()),
+                     ("split_bf16", hi + (p - hi).bfloat16().float())):
+        o = torch.einsum("bhgqk,bhkd->bhgqd", pr, v.float()) / l
+        o = o.reshape(b, hq, sq, d).bfloat16().float()
+        tol = FLASH_ATOL + FLASH_RTOL["bfloat16"] * want.abs()
+        share[name] = ((o - want).abs() > tol).float().mean().item()
+    return share
 
 
 def time_flash(dev):
@@ -831,11 +937,22 @@ def time_flash(dev):
     def pick(xs):
         return xs[next(it) % len(xs)]
     out["k3"] = timed(lambda: K3.flash_attention(*pick(fa), causal=True))
+    out["k3_cuda_core"] = timed(lambda: K3.flash_attention(
+        *pick(fa), causal=True, variant="cuda_core"))
     out["k3_plain"] = timed(lambda: fa_ref.mha(*pick(fa), causal=True),
                             iters=20)
     out["k3_library"] = timed(lambda: F.scaled_dot_product_attention(
         *pick(fa), is_causal=True, enable_gqa=True))
     q, k, v = fa[0]
+    # information, no gate: K3's and SDPA's largest error against ref.mha
+    want = fa_ref.mha(q, k, v, causal=True).float()
+    for key, got in (("k3", K3.flash_attention(q, k, v, causal=True)),
+                     ("sdpa", F.scaled_dot_product_attention(
+                         q, k, v, is_causal=True, enable_gqa=True))):
+        out[f"{key}_max_abs_err_vs_ref"] = (got.float() - want).abs().max(
+        ).item()
+    out["k3_p_rounding_fail_share"] = p_rounding_fail_share(q, k, v, want)
+    del want
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     pairs = int(np.tril(np.ones((sq, skv), bool), skv - sq).sum()) * b * hq
@@ -857,6 +974,7 @@ def time_flash(dev):
         F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
                                        enable_gqa=True)
     out["k4_library"] = timed(library)
+    out["k4_blocks"] = B * HKV * K4.n_splits(fd[0][1].shape[2])
     es = fd[0][1].element_size()
     attended = int(np.minimum(lengths_np, fd[0][1].shape[2]).sum())
     k4_bytes = (2 * attended * HKV * D * es + 2 * B * HKV * G * D * es
@@ -878,7 +996,8 @@ def phase_prefill(dev, dtype: str):
     "pallas") and with the plain oracle ("ref") on the same weights and
     tokens: logits and K/V cache within LOGIT_RTOL of their largest
     magnitude (f32 carries correctness; bf16 is a smoke check, as in phase
-    3).  Returns (K3 launches of the timed kernel prefill, results)."""
+    3), and the device time of a prefill by torch.profiler beside its wall
+    time.  Returns (K3 launches of the timed kernel prefill, results)."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as K3
     from repro_torch.kernels.paged_decode import flash as K4
@@ -897,9 +1016,24 @@ def phase_prefill(dev, dtype: str):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = K3.LAUNCHES["flash_attention"]
+    tc = K3.LAUNCHES["flash_attention_tc"]
     if launches != cfg.n_layers:
         raise AssertionError(f"flash_attention: {launches} launches in one "
                              f"prefill of {cfg.n_layers} layers")
+    # bf16 goes to the tensor cores (head dim 128), f32 to the CUDA cores
+    if tc != (cfg.n_layers if dtype == "bfloat16" else 0):
+        raise AssertionError(f"flash_attention: {tc} tensor-core launches in "
+                             f"one {dtype} prefill of {cfg.n_layers} layers")
+    # where the prefill's time goes: wall and device ms per prefill in a
+    # steady state, K3's share of the device time
+    t0 = time.perf_counter()
+    for _ in range(3):
+        model.prefill({"tokens": toks}, PREFILL_MAX_LEN)
+    torch.cuda.synchronize()
+    steady_ms = (time.perf_counter() - t0) / 3 * 1e3
+    dev_ms, by_name = device_profile(
+        lambda: model.prefill({"tokens": toks}, PREFILL_MAX_LEN), iters=3,
+        warmup=0)
     t0 = time.perf_counter()
     ref_logits, ref_cache = T.prefill(
         dataclasses.replace(cfg, attn_impl="ref"), model.params,
@@ -922,7 +1056,14 @@ def phase_prefill(dev, dtype: str):
            "rtol": LOGIT_RTOL[dtype], "prefill_ms": wall_ms,
            "plain_prefill_ms": plain_ms,
            "prompt_tokens_per_s": PREFILL_B * PREFILL_S / wall_ms * 1e3,
-           "flash_attention_launches": launches}
+           "flash_attention_launches": launches,
+           "flash_attention_tc_launches": tc,
+           "steady_prefill_ms": steady_ms,
+           "device_ms_per_prefill": dev_ms,
+           "busy_share": None if dev_ms is None else dev_ms / steady_ms,
+           "k3_device_ms_per_prefill": sum(
+               v for k, v in by_name.items()
+               if any(sym in k for sym in KERNEL_SYMBOLS["flash_attention"]))}
     del cache, ref_cache
     if dtype == "float32":
         # prefill(S-1) + one batch-layout decode step (K4) == prefill(S)

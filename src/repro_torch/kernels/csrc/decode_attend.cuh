@@ -1,7 +1,6 @@
-// One-token decode attention, shared by K2 (paged_decode.cu, positions
-// found through a block table) and K4 (flash_decode.cu, contiguous
-// positions): the warp-level online softmax over chunks of K/V rows held in
-// registers, and the block's log-sum-exp merge of its warps.
+// One-token decode attention for K2 (paged_decode.cu, positions found
+// through a block table): the warp-level online softmax over chunks of K/V
+// rows held in registers, and the block's log-sum-exp merge of its warps.
 //
 // A warp handles one query head.  Lane j holds the element pairs
 // (2p, 2p + 1) of a row for p = j, j + 32, ... (MAX_P pairs), so a row is
@@ -106,12 +105,10 @@ __device__ __forceinline__ void store_record(float* r, const float2 (&acc)[MAX_P
 
 // Log-sum-exp merge of each head's wph warp records (head g's records
 // start at smem + g * wph * (D + 2)), by the whole block: writes m, l and
-// either the unnormalised acc (NORMALISE false, Tout float) or acc / l with
-// the l == 0 guard (NORMALISE true) for the G heads from head0 on.
-template <typename Tout, bool NORMALISE>
+// the unnormalised acc for the G heads from head0 on.
 __device__ __forceinline__ void merge_records(const float* smem, int G, int D,
                                               int wph, int64_t head0,
-                                              Tout* __restrict__ out,
+                                              float* __restrict__ out,
                                               float* __restrict__ m_out,
                                               float* __restrict__ l_out) {
   const int rec = D + 2;
@@ -128,8 +125,7 @@ __device__ __forceinline__ void merge_records(const float* smem, int G, int D,
       float sum = 0.f;
       for (int w = 0; w < wph; ++w)
         sum += r[w * rec + d] * expf(r[w * rec + D] - mx);
-      if (NORMALISE) sum /= lsum == 0.f ? 1.f : lsum;
-      out[(head0 + g) * D + d] = from_f32<Tout>(sum);
+      out[(head0 + g) * D + d] = sum;
     } else {
       m_out[head0 + g] = mx;
       l_out[head0 + g] = lsum;

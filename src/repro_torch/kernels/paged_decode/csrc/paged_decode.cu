@@ -34,9 +34,8 @@
 //   loads a whole chunk's K and V rows into registers (each lane a pair of
 //   elements per load, so every load is coalesced and a chunk's loads are
 //   all in flight together), then scores it and folds it into the warp's
-//   own online softmax (m, l, acc in f32 registers; decode_attend.cuh,
-//   shared with K4).  No shared memory holds K or V, so any page size
-//   fits.  At the end the
+//   own online softmax (m, l, acc in f32 registers; decode_attend.cuh).
+//   No shared memory holds K or V, so any page size fits.  At the end the
 //   block merges its warps' (m, l, acc) by log-sum-exp through 8*D floats
 //   of shared memory and emits UNNORMALISED (acc, m, l) so shards can be
 //   merged the same way.  An empty row leaves exactly m = -1e30, l = 0,
@@ -152,8 +151,7 @@ __global__ void __launch_bounds__(kAttendWarps * 32) gather_attend_kernel(
   }
   __syncthreads();
   // log-sum-exp merge of each head's warps; the output stays unnormalised
-  repro::merge_records<float, false>(smem, G, D, wph, head0, acc_out, m_out,
-                                     l_out);
+  repro::merge_records(smem, G, D, wph, head0, acc_out, m_out, l_out);
 }
 
 constexpr int kWriteThreads = 256;

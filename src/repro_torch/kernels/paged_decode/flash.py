@@ -9,6 +9,13 @@ stream, building the library with ``nvcc`` at first use
 CUDA kernel has no interpret mode.  Its plain version is the non-kernel
 branch of :func:`repro_torch.kernels.paged_decode.flash_ops.decode_attention_partial`,
 which agrees with the kernel on empty rows too.
+
+The kernel splits each row's positions into :data:`SPLIT`-long pieces, one
+block each, and merges them in the same launch: the wrapper passes scratch
+for the pieces' records (``torch.empty``) and a per-device buffer of
+counters, one per (sequence, KV head), that the kernel leaves at 0 after
+every launch.  Launches on one device share that buffer, so they must run
+in stream order (the port uses PyTorch's current stream throughout).
 """
 from __future__ import annotations
 
@@ -24,6 +31,11 @@ LAUNCHES = {"flash_decode": 0}
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_decode.cu",)
 LIBRARY = "flash_decode"
 
+#: positions per block (kSplit in csrc/flash_decode.cu)
+SPLIT = 64
+
+_counters: dict[torch.device, torch.Tensor] = {}
+
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
@@ -38,8 +50,23 @@ def build() -> tuple[Path, str]:
 def _bind(lib) -> None:
     import ctypes
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_decode.argtypes = [p] * 7 + [i] * 6 + [f, i, i, p]
+    lib.flash_decode.argtypes = [p] * 9 + [i] * 6 + [f, i, i, p]
     lib.flash_decode.restype = i
+
+
+def n_splits(s: int) -> int:
+    """Blocks per (sequence, KV head) for a cache of ``s`` positions."""
+    return max(1, -(-s // SPLIT))
+
+
+def _counter_buffer(dev: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters on ``dev``, kept across calls
+    (the kernel resets what it uses)."""
+    buf = _counters.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1), dtype=torch.int32, device=dev)
+        _counters[dev] = buf
+    return buf
 
 
 def flash_decode(q, k, v, lengths, *, scale: float | None = None,
@@ -65,19 +92,23 @@ def flash_decode(q, k, v, lengths, *, scale: float | None = None,
     out = torch.empty_like(q)
     m = torch.empty((b, hkv, g, 1), dtype=torch.float32, device=dev)
     l = torch.empty((b, hkv, g, 1), dtype=torch.float32, device=dev)
+    s = k.shape[2]
+    part = torch.empty((b, hkv, n_splits(s), g, d + 2), dtype=torch.float32,
+                       device=dev)
+    count = _counter_buffer(dev, b * hkv)
     lib = _build.load(LIBRARY, SOURCES, _bind)
     with torch.cuda.device(dev):
         err = lib.flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), m.data_ptr(), l.data_ptr(), b, hkv, g,
-            k.shape[2], d, 0 if window is None else int(window), scale,
-            q_code, kv_code, _build.stream_of(dev))
+            out.data_ptr(), m.data_ptr(), l.data_ptr(), part.data_ptr(),
+            count.data_ptr(), b, hkv, g, s, d,
+            0 if window is None else int(window), scale, q_code, kv_code,
+            _build.stream_of(dev))
     if err == _build.CUDA_ERROR_INVALID_VALUE:
         raise ValueError(
             f"flash_decode refused D={d}, G={g} (CUDA error {err}): the "
-            "kernel takes even head dims 2..256, groups whose per-warp "
-            "softmax records fit 48 KB of shared memory and pointers "
-            "aligned to an element pair (csrc/flash_decode.cu)")
+            "kernel takes even head dims 2..256 and pointers aligned to an "
+            "element pair (csrc/flash_decode.cu)")
     if err:
         raise RuntimeError(f"flash_decode launch failed: CUDA error {err}")
     LAUNCHES["flash_decode"] += 1

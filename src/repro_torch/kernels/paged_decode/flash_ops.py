@@ -52,12 +52,23 @@ def decode_attention_partial(q, k, v, lengths, *, scale: float | None = None,
     return out.reshape(b, hq, d), m.reshape(b, hq), l.reshape(b, hq)
 
 
-def merge_partials(outs, ms, ls):
-    """Merge per-shard partials along a leading shard axis.
+def merge_splits(outs, ms, ls):
+    """Merge per-shard partials along a leading shard axis, in its order, by
+    log-sum-exp: (out [B, Hq, D], m [B, Hq], l [B, Hq]), with an empty merge
+    (every l 0) giving (0, -1e30, 0).  What K4 does with its splits' records
+    inside a launch.
 
     outs: [P, B, Hq, D] locally normalised; ms, ls: [P, B, Hq]."""
     m_max = ms.amax(0)
     w = torch.exp(ms - m_max) * ls                        # effective weights
     denom = w.sum(0)
     num = (w[..., None] * outs).sum(0)
-    return (num / torch.where(denom == 0.0, 1.0, denom)[..., None]).to(outs.dtype)
+    out = num / torch.where(denom == 0.0, 1.0, denom)[..., None]
+    return out.to(outs.dtype), m_max, denom
+
+
+def merge_partials(outs, ms, ls):
+    """Merge per-shard partials along a leading shard axis.
+
+    outs: [P, B, Hq, D] locally normalised; ms, ls: [P, B, Hq]."""
+    return merge_splits(outs, ms, ls)[0]

@@ -7,10 +7,13 @@ The same numpy inputs go through the port's ``ref.mha`` and
 causal, windowed, GQA and tail-query cases (tests/test_kernels.py:58,70);
 and through the port's plain ``decode_attention_partial`` and
 ``merge_partials`` and JAX's Pallas ``flash_decode`` (interpret mode),
-including a length-0 row (tests/test_kernels.py:85,99).  Tolerance: rtol
-1e-5, atol 1e-5 in f32 -- the same function, the softmax summed in another
-order.  These plain versions are what chip_smoke.py holds the CUDA kernels
-against on the card; here the kernel wrappers refuse CPU tensors.
+including a length-0 row (tests/test_kernels.py:85,99); and the
+arithmetic of K4's split walk: the plain partials over its 64-position
+splits, merged in split order, equal the unsplit plain version and JAX's
+``flash_decode``.  Tolerance: rtol 1e-5, atol 1e-5 in f32 -- the same
+function, the softmax summed in another order.  These plain versions are
+what chip_smoke.py holds the CUDA kernels against on the card; here the
+kernel wrappers refuse CPU tensors.
 """
 import numpy as np
 import pytest
@@ -148,6 +151,60 @@ def test_merge_partials_matches_jax():
                                merged.numpy(), **TOL)
 
 
+def test_decode_splits_merge_to_unsplit():
+    """K4's arithmetic: the plain branch of decode_attention_partial run on
+    each of the kernel's 64-position splits of S = 200 (the last one 8
+    long), with lengths shifted to the split (so the window's lower edge
+    stays where it was), merged in split order by merge_splits, equals the
+    unsplit plain version and JAX's flash_decode (interpret mode): out, m
+    and l.  Lengths put row ends at split edges (63, 64, 65), leave splits
+    empty, and one row is empty ((0, -1e30, 0)); window 40 straddles the
+    edges at 64 and 128."""
+    lengths = [200, 0, 63, 64, 65, 129]
+    q, k, v, lengths = _decode_inputs(11, lengths, s=200)
+    b, hq, d = q.shape
+    hkv = k.shape[1]
+    sp = pt_fd.SPLIT
+    n = pt_fd.n_splits(k.shape[2])
+    assert (sp, n) == (64, 4)
+    t = [torch.tensor(a) for a in (q, k, v, lengths)]
+    for window in (None, 40):
+        cut = [slice(j * sp, (j + 1) * sp) for j in range(n)]
+        parts = [pt_fd_ops.decode_attention_partial(
+            t[0], t[1][:, :, c], t[2][:, :, c], t[3] - j * sp, window=window)
+            for j, c in enumerate(cut)]
+        out, m, l = pt_fd_ops.merge_splits(
+            *(torch.stack([p[i] for p in parts]) for i in range(3)))
+        whole = pt_fd_ops.decode_attention_partial(*t, window=window)
+        jo, jm, jl = jax_fd.flash_decode(
+            jnp.asarray(q.reshape(b, hkv, hq // hkv, d)), jnp.asarray(k),
+            jnp.asarray(v), jnp.asarray(lengths), window=window,
+            interpret=True)
+        for got, plain, want in ((out, whole[0], jo), (m, whole[1], jm),
+                                 (l, whole[2], jl)):
+            np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+            np.testing.assert_allclose(got.numpy(),
+                                       np.asarray(want).reshape(got.shape),
+                                       **TOL)
+        assert (out[1] == 0).all() and (m[1] == -1e30).all() \
+            and (l[1] == 0).all()
+        # a row that ends inside split 0 leaves splits 1-3 empty
+        assert all((p[2][2] == 0).all() for p in parts[1:])
+
+
+def test_flash_attention_variant_choice():
+    """K3's wrapper picks the tensor-core variant for bf16 at head dims 64
+    and 128 with aligned K/V, the CUDA-core variant for everything else."""
+    assert pt_fa.variant_for(torch.bfloat16, 128) == "tensor_core"
+    assert pt_fa.variant_for(torch.bfloat16, 64) == "tensor_core"
+    for dtype, d, aligned in ((torch.bfloat16, 96, True),
+                              (torch.bfloat16, 32, True),
+                              (torch.bfloat16, 128, False),
+                              (torch.float32, 128, True),
+                              (torch.float32, 64, True)):
+        assert pt_fa.variant_for(dtype, d, aligned) == "cuda_core"
+
+
 def test_kernel_wrappers_raise_on_cpu_tensors():
     """A CUDA kernel has no interpret mode: K3's and K4's wrappers, and the
     dispatch asked for the kernel, refuse CPU tensors and count no
@@ -163,5 +220,5 @@ def test_kernel_wrappers_raise_on_cpu_tensors():
         pt_fd.flash_decode(q[:, :, :1], k, k, lengths)
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         pt_fd_ops.decode_attention(q[:, :, 0], k, k, lengths, use_kernel=True)
-    assert pt_fa.LAUNCHES == {"flash_attention": 0}
+    assert pt_fa.LAUNCHES == {"flash_attention": 0, "flash_attention_tc": 0}
     assert pt_fd.LAUNCHES == {"flash_decode": 0}
