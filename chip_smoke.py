@@ -21,8 +21,13 @@ Each phase prints one JSON line with its seconds:
 2. kernels    -- K1 and K2 each against its plain PyTorch version (the
                  composed oracle, ``kernels/paged_decode/ref.py``) at the
                  main path's shapes (f32 and bf16, 1 and 2 emulated shards,
-                 window None and 64) and at other head groups, head dims
-                 and page sizes, with kernel / plain / library times and
+                 window None and 64), at other head groups, head dims and
+                 page sizes, and at K2's split edges (lengths 1, 63, 64, 65,
+                 511, 512 on 16- and 256-slot pages, a window of 40 that
+                 starts inside a split, on 2 shards a row that one shard
+                 owns none of and a split that holds only the other
+                 shard's frames), with two K2 launches bit for bit and its
+                 counters back at zero; kernel / plain / library times and
                  the least time the card could take (bound);
 3. teacher    -- 64 teacher-forced full-width decode steps with the kernels
                  and with the composed oracle, same weights and tokens:
@@ -78,9 +83,9 @@ Each phase prints one JSON line with its seconds:
                  reference tests' sweep shapes, rows of 1, 3 and 4
                  elements, f32, bf16, int32 and uint8 stores, empty,
                  repeated and past-the-end indices, a store offset by one
-                 row; then on the 8 GiB store in f32 and bf16 65536 slots
-                 and 16 and 4096 pages; kernel / plain / library / bound
-                 times;
+                 row, pages that K6's chunks do not divide; then on the 8
+                 GiB store in f32 and bf16 65536 slots and 1, 16 and 4096
+                 pages; kernel / plain / library / bound times;
 13. emem      -- random read/write of the 8 GiB store as 1 and as 16
                  emulated shards, 4096 requests per shard at capacity
                  factor 1.5 (a write batch repeats addresses), equal to
@@ -286,12 +291,21 @@ def mk_vm(rng, b, max_lp, ps, lengths, shared_page0):
 
 # -- phase 2 -------------------------------------------------------------------
 
-def kernel_case(seed, dtype, dev, g=G, d=D, ps=PS, max_lp=MAX_LP):
+def kernel_case(seed, dtype, dev, g=G, d=D, ps=PS, max_lp=MAX_LP,
+                lengths=None):
+    """Phase-2 inputs: ragged lengths with an empty row 1 and a write to
+    page 0 in row 2, and scrambled tables with a read-only page 0; or the
+    given ``lengths`` (row 1 empty) over the tables of
+    :func:`parity_tables`."""
     import torch
     rng = np.random.default_rng(seed)
-    lengths = rng.integers(1, max_lp * ps + 1, B).astype(np.int32)
-    lengths[1], lengths[2] = 0, min(7, ps)   # an empty row; a write to page 0
-    bt, fl, fr = mk_vm(rng, B, max_lp, ps, lengths, shared_page0=True)
+    if lengths is None:
+        lengths = rng.integers(1, max_lp * ps + 1, B).astype(np.int32)
+        lengths[1], lengths[2] = 0, min(7, ps)   # an empty row; a write to page 0
+        bt, fl, fr = mk_vm(rng, B, max_lp, ps, lengths, shared_page0=True)
+    else:
+        lengths = np.asarray(lengths, np.int32)
+        bt, fl, fr = parity_tables(rng, max_lp, ps, lengths)
     wm = np.ones(B, bool)
     wm[5] = False
     n_frames = B * max_lp
@@ -306,6 +320,31 @@ def kernel_case(seed, dtype, dev, g=G, d=D, ps=PS, max_lp=MAX_LP):
         vp=t(rng.normal(size=(n_frames, ps, HKV, d)).astype(np.float32), dtype),
         bt=t(bt), fl=t(fl), lengths=t(lengths), fr=t(fr), wm=t(wm), group=g,
         max_pages=max_lp, lengths_np=lengths, bt_np=bt, wm_np=wm, fr_np=fr)
+
+
+def parity_tables(rng, max_lp, ps, lengths):
+    """Tables for two emulated shards (shard = frame % 2): row 3's frames
+    all even, so shard 1 owns none of them; row 4's pages that hold its
+    first K2 split (positions below 64) even and the rest odd, so shard
+    1's first split of that row attends nothing while its others do; the
+    other rows' frames drawn from either.  No read-only frame."""
+    n_frames = B * max_lp
+    pools = [list(rng.permutation(np.arange(par, n_frames, 2)))
+             for par in (0, 1)]
+    bt = np.full((B, max_lp), -1, np.int32)
+    fl = np.zeros((n_frames,), np.int32)
+    for b in range(B):
+        for lp in range(-(-int(lengths[b]) // ps)):
+            if b == 3 or (b == 4 and lp * ps < K2_SPLIT):
+                par = 0
+            elif b == 4:
+                par = 1
+            else:
+                par = int(rng.integers(2)) if pools[0] and pools[1] else \
+                    int(not pools[0])
+            f = int(pools[par].pop())
+            bt[b, lp], fl[f] = f, lp
+    return bt, fl, np.zeros((n_frames,), bool)
 
 
 def k1_bytes(x, n_shards, sid):
@@ -386,23 +425,58 @@ def check_shard(x, sid, n_shards, window, use_vm, err, what):
     return f
 
 
-def check_case(x, n_shards, window, err):
+def check_case(x, n_shards, window, err, empty=None):
     """Every emulated shard of one input set; row 1 is empty and must come
-    out exactly (acc, m, l) = (0, -1e30, 0)."""
+    out exactly (acc, m, l) = (0, -1e30, 0), and so must the rows
+    ``empty[sid]`` on shard ``sid`` (rows whose frames it does not own)."""
     what = (f"{x['kp'].dtype} G={x['group']} D={x['q'].shape[2]} "
             f"slots={x['kp'].shape[1]} S={n_shards} window={window}")
     for sid in range(n_shards):
-        acc, m, l = (o[1] for o in check_shard(x, sid, n_shards, window, True,
-                                               err, what)[:3])
-        if not (bool((m == -1e30).all()) and bool((l == 0).all())
-                and bool((acc == 0).all())):
-            raise AssertionError(f"K2: empty row is not (-1e30, 0, 0): {what}")
+        acc, m, l = check_shard(x, sid, n_shards, window, True, err, what)[:3]
+        for row in (1, *(empty or {}).get(sid, ())):
+            if not (bool((m[row] == -1e30).all()) and bool((l[row] == 0).all())
+                    and bool((acc[row] == 0).all())):
+                raise AssertionError(f"K2: row {row} of shard {sid} is not "
+                                     f"(0, -1e30, 0): {what}")
+
+
+def check_k2_launch(x, n_shards, window):
+    """K2 alone on each shard of ``x``: two launches on the same inputs give
+    the same bits, and the launch leaves its counters at zero."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_decode import kernel as K
+    b, hq, d = x["q"].shape
+    qg = x["q"].reshape(b, HKV, hq // HKV, d)
+    for sid in range(n_shards):
+        kp = x["kp"][sid::n_shards].contiguous()
+        vp = x["vp"][sid::n_shards].contiguous()
+        runs = [K.paged_gather_attend(qg, kp, vp, x["bt"], x["lengths"],
+                                      (sid, n_shards, 0), window=window)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a.view(torch.int32), c.view(torch.int32))
+                   for a, c in zip(*runs)):
+            raise AssertionError(f"K2: two launches differ (shard {sid} of "
+                                 f"{n_shards}, {x['kp'].dtype}, window "
+                                 f"{window})")
+        count = build.counter_buffer(K.LIBRARY, x["q"].device, b * HKV)
+        if bool(count.any()):
+            raise AssertionError("K2 left a counter above zero")
 
 
 #: other head groups, head dims and page sizes the kernels take: (G, D,
 #: page_slots, max_lpages), each in f32 and bf16, windows None and 5
 OTHER_SHAPES = [(1, 64, 4, 16), (3, 80, 8, 8), (4, 256, 256, 2),
                 (16, 32, 16, 4)]
+#: positions per K2 block (build.SPLIT); lengths at its edges (row 1
+#: empty, rows 3 and 4 long enough to span several splits), on 16-slot
+#: pages and on 256-slot pages, where one page spans four splits; window
+#: 40 starts inside a split in every row longer than 40
+K2_SPLIT = 64
+K2_EDGE_LENGTHS = [K2_SPLIT - 1, 0, 1, 511, 512, K2_SPLIT, K2_SPLIT + 1,
+                   3 * K2_SPLIT + 17]
+K2_EDGE_PAGES = ((PS, MAX_LP), (256, 2))
 
 
 def check_identity_tables(dev, err):
@@ -418,6 +492,9 @@ def check_identity_tables(dev, err):
 
 def phase_kernels(dev):
     import torch
+    from repro_torch.kernels import build
+    if build.SPLIT != K2_SPLIT:
+        raise AssertionError(f"K2's split is {build.SPLIT}, not {K2_SPLIT}")
     err = {"k1": 0.0, "k2": 0.0}
     timing = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -431,6 +508,15 @@ def phase_kernels(dev):
             x = kernel_case(23, dtype, dev, g=g, d=d, ps=ps, max_lp=max_lp)
             for window in (None, 5):
                 check_case(x, 1, window, err)
+        # K2's split edges; on two shards row 3 lies wholly on shard 0
+        for ps, max_lp in K2_EDGE_PAGES:
+            x = kernel_case(27, dtype, dev, ps=ps, max_lp=max_lp,
+                            lengths=K2_EDGE_LENGTHS)
+            for n_shards in (1, 2):
+                for window in (None, 40):
+                    check_case(x, n_shards, window, err,
+                               empty={1: (3,)} if n_shards == 2 else None)
+                    check_k2_launch(x, n_shards, window)
     check_identity_tables(dev, err)
     return err, timing
 
@@ -440,6 +526,7 @@ def time_kernels(x):
     shard, no window).  K2 cycles over 8 copies of the page pool (8 x 17 MB,
     past the 50 MB L2), since the serving path finds each layer's pages cold."""
     import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels.paged_decode import kernel as K
     from repro_torch.kernels.paged_decode import ref
     meta = (0, 1, 0)
@@ -480,6 +567,7 @@ def time_kernels(x):
                          head_start=0, group=G, window=None, **shard)
     out["k2"] = timed(k2)
     out["k2_plain"] = timed(k2_plain, iters=20)
+    out["k2_blocks"] = B * HKV * build.n_splits(MAX_LP * PS)
     b1 = k1_bytes(x, 1, 0)
     b2, ops2 = k2_work(x, 1, 0, None)
     out["k1_bound_ms"] = b1 / HBM_BYTES_PER_S * 1e3
@@ -1409,8 +1497,14 @@ EMEM_REQUESTS, EMEM_CF = 4096, 1.5
 #: dependent hops of the pointer chase (examples/emulated_memory_demo.py)
 CHASE_HOPS = 1024
 #: K7 and K6 at the paths' shapes: 65536 slots (an emem batch at 16
-#: shards), 16 pages (a 16-set cache fill), 4096 pages (bulk)
-GATHER_SLOTS, GATHER_FILL, GATHER_BULK = 65536, 16, 4096
+#: shards), 1 page (a swap-out), 16 pages (a 16-set cache fill), 4096 pages
+#: (bulk)
+GATHER_SLOTS, GATHER_SWAP, GATHER_FILL, GATHER_BULK = 65536, 1, 16, 4096
+#: a page K6 cuts into chunks that do not divide it: 255 x 127 elements
+#: are 32385 units (of 4 bytes in f32, of 2 in bf16), in chunks of 128
+#: units for 1 page (254 chunks) and of 1920 for 16 (17 chunks), by
+#: gather.cu's rule
+GATHER_ODD_PAGE = (255, 127)
 
 
 def emem_store(dev, seed: int, dtype=None):
@@ -1456,8 +1550,10 @@ def phase_gather(dev):
     tests' sweep shapes (tests/test_kernels.py:21-42) with rows of 1, 3 and
     4 elements, f32, bf16, an int32 page-table store and a uint8 store
     (every copy unit, 16 bytes down to 1), empty (-1), repeated and
-    past-the-end indices; then the paths' shapes on the 8 GiB store, in f32
-    and bf16, and their times."""
+    past-the-end indices; K6 on pages that its chunks do not divide; then
+    the paths' shapes on the 8 GiB store (65536 slots; 1, 16 and 4096
+    pages, with empty and past-the-end ids), in f32 and bf16, and their
+    times."""
     import torch
     rng = np.random.default_rng(89)
     for dtype in (torch.float32, torch.bfloat16, torch.int32, torch.uint8):
@@ -1475,6 +1571,12 @@ def phase_gather(dev):
                           [0, 3, -1], "offset store")
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
+        odd = torch.tensor(rng.normal(size=(64, *GATHER_ODD_PAGE)),
+                           device=dev).to(dtype)
+        for p in (GATHER_SWAP, GATHER_FILL):
+            for ids in page_ids(rng, len(odd), p):
+                check_gathers(odd, [0, -1], ids, f"odd page, {p} pages")
+        del odd
         store = emem_store(dev, 97, dtype)
         n_pages, ps, _ = store.shape
         g = torch.Generator(device=dev).manual_seed(101)
@@ -1482,11 +1584,10 @@ def phase_gather(dev):
                               device=dev, dtype=torch.int32)
         slots[::97] = -1
         slots[1::89] = slots[0]
-        for p in (GATHER_FILL, GATHER_BULK):
-            ids = torch.randint(0, n_pages, (p,), generator=g, device=dev,
-                                dtype=torch.int32)
-            ids[3] = -1
-            check_gathers(store, slots, ids, f"paths' shapes, {p} pages")
+        check_gathers(store, slots, [0], "paths' shapes, 65536 slots")
+        for p in (GATHER_SWAP, GATHER_FILL, GATHER_BULK):
+            for ids in page_ids(rng, n_pages, p):
+                check_gathers(store, [0], ids, f"paths' shapes, {p} pages")
         if dtype == torch.float32:
             out = time_gathers(store, slots, g)
         del store
@@ -1494,12 +1595,25 @@ def phase_gather(dev):
     return {"k6": 0.0, "k7": 0.0}, out
 
 
+def page_ids(rng, n_pages, p):
+    """K6 index sets of ``p`` pages with an empty (-1) and a past-the-end
+    id: one set for ``p`` > 2, else one set each (a random id first)."""
+    ids = rng.integers(0, n_pages, p)
+    if p < 3:
+        return [ids, np.full(p, -1), np.full(p, n_pages + 3)]
+    ids[1], ids[2] = -1, n_pages + 3
+    return [ids]
+
+
 def time_gathers(store, slots, g):
-    """Kernel, plain and library times of K7 (65536 slots) and K6 (16 and
-    4096 pages) on the 8 GiB f32 store; every index is drawn uniformly, so
-    every row or page is read cold.  The library call is ``index_select``
-    on indices clamped beforehand: it does not zero the empty ones, so it
-    is a yardstick, not the same function."""
+    """Kernel, plain and library times of K7 (65536 slots) and K6 (1, 16
+    and 4096 pages) on the 8 GiB f32 store; every index is drawn uniformly,
+    and K6 cycles over sets of page ids that together pass the 50 MB L2, so
+    every row or page is read cold.  K6 at 1 and 16 pages is also timed
+    warm (``_warm``: the same ids every call, which leaves them in the L2).
+    The library call is ``index_select`` on indices clamped beforehand: it
+    does not zero the empty ones, so it is a yardstick, not the same
+    function."""
     import torch
     from repro_torch.kernels.paged_decode import gather as K67
     from repro_torch.kernels.paged_decode import gather_ref
@@ -1511,15 +1625,28 @@ def time_gathers(store, slots, g):
     clamped = slots.long().clamp(min=0)
     out["k7_library"] = timed(lambda: flat.index_select(0, clamped))
     k7_bytes = slots.numel() * (4 + 2 * row)
-    for p, key in ((GATHER_BULK, "k6"), (GATHER_FILL, "k6_fill")):
-        ids = torch.randint(0, n_pages, (p,), generator=g, device=store.device,
-                            dtype=torch.int32)
-        out[key] = timed(lambda: K67.gather_pages(store, ids), iters=20)
+    it = itertools.count()
+    for p, key in ((GATHER_BULK, "k6"), (GATHER_FILL, "k6_fill"),
+                   (GATHER_SWAP, "k6_swap")):
+        n_sets = -(-(128 << 20) // (p * ps * row))      # 128 MB of pages
+        sets = [torch.randint(0, n_pages, (p,), generator=g,
+                              device=store.device, dtype=torch.int32)
+                for _ in range(n_sets)]
+        lib_sets = [ids.long() for ids in sets]
+
+        def pick(xs):
+            return xs[next(it) % len(xs)]
+        out[key] = timed(lambda: K67.gather_pages(store, pick(sets)),
+                         iters=20)
         out[f"{key}_plain"] = timed(
-            lambda: gather_ref.gather_pages(store, ids), iters=20)
-        lib_ids = ids.long()
-        out[f"{key}_library"] = timed(lambda: store.index_select(0, lib_ids),
-                                      iters=20)
+            lambda: gather_ref.gather_pages(store, pick(sets)), iters=20)
+        out[f"{key}_library"] = timed(
+            lambda: store.index_select(0, pick(lib_sets)), iters=20)
+        if n_sets > 1:
+            out[f"{key}_warm"] = timed(
+                lambda: K67.gather_pages(store, sets[0]), iters=20)
+            out[f"{key}_library_warm"] = timed(
+                lambda: store.index_select(0, lib_sets[0]), iters=20)
         out[f"{key}_bytes"] = p * (4 + 2 * ps * row)
         out[f"{key}_bound_ms"] = out[f"{key}_bytes"] / HBM_BYTES_PER_S * 1e3
     out.update(k7_bytes=k7_bytes,

@@ -25,11 +25,15 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: positions per block of the split decode kernels K2 and K4 (kSplit in
+#: csrc/split_decode.cuh)
+SPLIT = 64
 #: dtype codes of the C entries
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 CUDA_ERROR_INVALID_VALUE = 1
 
 _loaded: dict[str, object] = {}
+_counters: dict[tuple[str, torch.device], torch.Tensor] = {}
 
 
 def _nvcc() -> str:
@@ -110,6 +114,24 @@ def check_cuda(**tensors) -> torch.device:
             raise ValueError(f"{name} must be contiguous")
         dev = t.device
     return dev
+
+
+def n_splits(s: int) -> int:
+    """Blocks per (sequence, KV head) of a split kernel over ``s``
+    positions (one at least)."""
+    return max(1, -(-s // SPLIT))
+
+
+def counter_buffer(name: str, dev: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters of library ``name`` on ``dev``,
+    kept across calls: a split kernel's last block of a row finds itself by
+    one and resets it.  Launches that share the buffer must run in stream
+    order (the port launches on PyTorch's current stream throughout)."""
+    buf = _counters.get((name, dev))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1), dtype=torch.int32, device=dev)
+        _counters[(name, dev)] = buf
+    return buf
 
 
 def stream_of(dev: torch.device) -> int:

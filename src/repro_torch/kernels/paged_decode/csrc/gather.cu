@@ -20,8 +20,18 @@
 // both base pointers allow: 16-byte vectors for the production store's
 // 512-byte rows, down to single bytes for a 3-element bf16 row.  K7 gives
 // one warp to each requested slot, its lanes on consecutive units of the
-// row, and grid-strides over the requests; K6 gives one block of 256
-// threads to each output page, each thread keeping four units in flight.
+// row, and grid-strides over the requests.  K6 cuts each page into chunks,
+// one block each, on a flat grid whose block index gives (page, chunk).  A
+// block of up to 256 threads copies one round of at most eight units a
+// thread (32 KB in 16-byte units), all of a thread's loads in flight
+// before its first store.  The chunk is chosen per call: that full round
+// when there are pages enough for kMinBlocks blocks (the 4096-page bulk
+// read: 16384 blocks of 2048 units), else the page cut into whole warps of
+// units so that the grid has at least kMinBlocks blocks, two on each of
+// the H100's 132 SMs (a 16-page cache fill: 256 blocks of 512 units; a
+// 1-page swap-out: 256 blocks of 32 units, where one block a page ran on
+// one SM).  A block has as many threads as its chunk has units, up to 256.
+// Loads and stores stream past the caches (every byte is touched once).
 // Every element and byte offset is computed in 64 bits: the production
 // store holds 2^31 elements (8 GiB in f32).
 //
@@ -35,8 +45,9 @@ namespace {
 
 constexpr int kWarps = 8;            // K7: warps per block, a slot each
 constexpr int64_t kMaxBlocks = 4096;  // K7: the grid strides past this
-constexpr int kPageThreads = 256;     // K6: threads per page
-constexpr int kInFlight = 4;          // K6: units in flight per thread
+constexpr int kPageThreads = 256;     // K6: most threads per block
+constexpr int kInFlight = 8;          // K6: units in flight per thread
+constexpr int64_t kMinBlocks = 264;   // K6: two blocks per SM of an H100
 
 __host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
@@ -61,28 +72,35 @@ __global__ void __launch_bounds__(kWarps * 32) gather_slots_kernel(
   }
 }
 
+// Block i copies units [c * chunk, min((c + 1) * chunk, page_units)) of
+// output page p = i / chunks, c = i % chunks, one round: chunk is at most
+// kInFlight units for each of its threads.
 template <typename V>
 __global__ void __launch_bounds__(kPageThreads) gather_pages_kernel(
     const V* __restrict__ pages, const int32_t* __restrict__ ids,
-    V* __restrict__ out, int64_t n_pages, int64_t page_units) {
-  const int64_t p = blockIdx.x;
+    V* __restrict__ out, int64_t n_pages, int64_t page_units, int64_t chunk,
+    int64_t chunks) {
+  const int64_t p = blockIdx.x / chunks;
+  const int64_t lo = blockIdx.x % chunks * chunk;
+  const int64_t hi = min64(lo + chunk, page_units);
+  const int64_t step = blockDim.x;
+  const int64_t j = lo + threadIdx.x;
   const int32_t id = ids[p];
   V* dst = out + p * page_units;
-  int64_t j = threadIdx.x;
   if (id < 0) {
-    for (; j < page_units; j += kPageThreads) dst[j] = V();
+#pragma unroll
+    for (int k = 0; k < kInFlight; ++k)
+      if (j + k * step < hi) __stcs(dst + j + k * step, V());
     return;
   }
   const V* src = pages + min64(id, n_pages - 1) * page_units;
-  for (; j + (kInFlight - 1) * kPageThreads < page_units;
-       j += kInFlight * kPageThreads) {
-    V v[kInFlight];
+  V v[kInFlight];
 #pragma unroll
-    for (int k = 0; k < kInFlight; ++k) v[k] = src[j + k * kPageThreads];
+  for (int k = 0; k < kInFlight; ++k)
+    if (j + k * step < hi) v[k] = __ldcs(src + j + k * step);
 #pragma unroll
-    for (int k = 0; k < kInFlight; ++k) dst[j + k * kPageThreads] = v[k];
-  }
-  for (; j < page_units; j += kPageThreads) dst[j] = src[j];
+  for (int k = 0; k < kInFlight; ++k)
+    if (j + k * step < hi) __stcs(dst + j + k * step, v[k]);
 }
 
 // the widest copy unit dividing ``bytes`` to which both pointers align
@@ -108,9 +126,19 @@ template <typename V>
 void launch_pages(const void* pages, const void* ids, void* out,
                   int64_t n_pages, int64_t p, int64_t page_bytes,
                   cudaStream_t stream) {
-  gather_pages_kernel<V><<<(unsigned)p, kPageThreads, 0, stream>>>(
+  const int64_t units = page_bytes / (int64_t)sizeof(V);
+  // a full block's round, or the page cut into whole warps of units so that
+  // the grid has kMinBlocks blocks
+  int64_t chunk = min64(units, kInFlight * kPageThreads);
+  const int64_t per_page = (kMinBlocks + p - 1) / p;
+  if (per_page > 1 && units > 32)
+    chunk = min64(chunk, ((units + per_page - 1) / per_page + 31) / 32 * 32);
+  const int64_t chunks = (units + chunk - 1) / chunk;
+  // at least chunk / kInFlight threads: one round
+  const int threads = (int)min64(chunk, kPageThreads);
+  gather_pages_kernel<V><<<(unsigned)(p * chunks), threads, 0, stream>>>(
       static_cast<const V*>(pages), static_cast<const int32_t*>(ids),
-      static_cast<V*>(out), n_pages, page_bytes / (int64_t)sizeof(V));
+      static_cast<V*>(out), n_pages, units, chunk, chunks);
 }
 
 }  // namespace
@@ -144,7 +172,9 @@ extern "C" int gather_slots(const void* pages, const void* slots, void* out,
 extern "C" int gather_pages(const void* pages, const void* ids, void* out,
                             long long n_pages, long long p,
                             long long page_bytes, void* stream) {
-  if (n_pages < 1 || p < 0 || p > 0x7fffffffLL || page_bytes < 1)
+  // a block a page and 2048 bytes or more: the grid's 2^31 - 1 blocks
+  if (n_pages < 1 || p < 0 || page_bytes < 1 || p > 0x7fffffffLL ||
+      (page_bytes + 2047) / 2048 > 0x7fffffffLL / (p > 0 ? p : 1))
     return (int)cudaErrorInvalidValue;
   if (p == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

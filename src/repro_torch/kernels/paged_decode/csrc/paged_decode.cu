@@ -25,34 +25,37 @@
 //   memory and used by only G query heads (2 for qwen3-0.6b), about
 //   G * 4 floating-point operations per byte, well below the H100's
 //   ridge point.
-//   Design: one block of 8 warps per (sequence, local KV head).  The
-//   block walks its block-table row itself, position by position, only over
-//   [max(0, len - window), len) -- the TPU grid walks all max_lpages pages
-//   because its grid is static -- and skips frames another shard owns.  The
-//   warps split the G query heads of the group between them and, within a
-//   head, interleave chunks of 8 positions (4 when D > 128): a warp first
-//   loads a whole chunk's K and V rows into registers (each lane a pair of
-//   elements per load, so every load is coalesced and a chunk's loads are
-//   all in flight together), then scores it and folds it into the warp's
-//   own online softmax (m, l, acc in f32 registers; decode_attend.cuh).
-//   No shared memory holds K or V, so any page size fits.  At the end the
-//   block merges its warps' (m, l, acc) by log-sum-exp through 8*D floats
-//   of shared memory and emits UNNORMALISED (acc, m, l) so shards can be
-//   merged the same way.  An empty row leaves exactly m = -1e30, l = 0,
-//   acc = 0.  scale = D^-0.5 multiplies the q.k product, as on the TPU.
-//   An earlier version staged pages through shared memory with four block
-//   barriers per page; it ran at 0.30 ms per call at the main path's
-//   shapes on an H100, twice the plain PyTorch version's device time.  The
-//   next loaded one element per lane and load (0.088 ms).
+//   Design: a split walk of the block table, the one K4 uses over its
+//   contiguous cache (kernels/csrc/split_decode.cuh, whose header gives the
+//   design and the merge).  Each (sequence, local KV head) row's positions
+//   are cut into 64-long splits, one block each: grid
+//   (ceil(max_lpages * page_slots / 64), hkv_loc, B), 512 blocks at the
+//   serving shape (B 8, Hkv 8, 32 pages of 16 slots).  Each lane translates
+//   its own positions: frame f = block_table[b, pos / page_slots], attended
+//   where f >= 0, f % n_shards == sid and f / n_shards < np_loc, and pos
+//   lies in [max(0, len - window), len) -- the TPU grid walks all
+//   max_lpages pages because its grid is static.  Each paged K/V row is
+//   loaded once for all G query heads of its group, in 16-, 8- or 4-byte
+//   units chosen per call.  The split's records go to scratch, and the last
+//   block of a row merges them in split order, so one launch per call and
+//   the same bits every launch.  It emits UNNORMALISED (acc, m, l) in f32
+//   so shards can be merged the same way; an empty row, or one whose frames
+//   all lie on other shards, gives exactly acc = 0, m = -1e30, l = 0.
+//   scale = D^-0.5 multiplies the q.k product, as on the TPU.
+//   Earlier versions, at the main path's shapes on an H100: staging pages
+//   through shared memory with four block barriers per page, 0.30 ms per
+//   call; one block of 8 warps per (sequence, KV head) walking its
+//   positions serially, each lane one element per load, 0.088 ms; the same
+//   walk with element-pair loads, 0.065 ms (64 blocks on 132 SMs).
 //
 // Both entries take (sid, n_shards, kv_start) so one build serves every
 // shard of a multi-shard layout.  Each C entry returns cudaGetLastError().
 
-#include "decode_attend.cuh"
+#include "split_decode.cuh"
 
 namespace {
 
-using repro::kNegInf;
+namespace sd = repro::split_decode;
 using repro::to_f32;
 
 template <typename To, typename From>
@@ -92,66 +95,34 @@ __global__ void kv_write_kernel(const Tin* __restrict__ k_new,
 }
 
 // -- K2: READ + attend ------------------------------------------------------------
-constexpr int kAttendWarps = 8;
 
-template <typename Tq, typename Tkv, int MAX_P, int CHUNK>
-__global__ void __launch_bounds__(kAttendWarps * 32) gather_attend_kernel(
-    const Tq* __restrict__ q, const Tkv* __restrict__ k_pages,
-    const Tkv* __restrict__ v_pages, const int32_t* __restrict__ block_table,
-    const int32_t* __restrict__ lengths, float* __restrict__ acc_out,
-    float* __restrict__ m_out, float* __restrict__ l_out, int hkv_loc, int G,
-    int D, int page_slots, int max_lpages, int hkv, int np_loc, int sid,
-    int n_shards, int kv_start, int window, float scale) {
-  // per (head g, warp-of-head w): acc[D] | m | l
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int len = lengths[b];
-  const int lo = (window > 0 && len > window) ? len - window : 0;
-  const int hi = min(len, max_lpages * page_slots);
-  const int kvh = kv_start + h;
-  const int64_t head0 = ((int64_t)b * hkv_loc + h) * G;   // first q head
-  const int32_t* bt_row = block_table + (int64_t)b * max_lpages;
-  // warps per query head; with more heads than warps each warp takes
-  // heads warp, warp + kAttendWarps, ... alone
-  const int wph = G >= kAttendWarps ? 1 : kAttendWarps / G;
-  const int stride = CHUNK * wph;
-
-  for (int g = warp / wph; g < G; g += kAttendWarps / wph) {
-    const int w = warp % wph;
-    float2 qr[MAX_P], acc[MAX_P];
-    repro::load_row(q + (head0 + g) * D, D, lane, true, qr);
-#pragma unroll
-    for (int i = 0; i < MAX_P; ++i) acc[i] = make_float2(0.f, 0.f);
-    float m = kNegInf, l = 0.f;
-    for (int c0 = lo + w * CHUNK; c0 < hi; c0 += stride) {
-      int64_t base[CHUNK];
-      bool ok[CHUNK];
-#pragma unroll
-      for (int c = 0; c < CHUNK; ++c) {
-        const int pos = c0 + c;
-        ok[c] = false;
-        base[c] = 0;
-        if (pos < hi) {
-          const int f = bt_row[pos / page_slots];
-          if (f >= 0 && f % n_shards == sid && f / n_shards < np_loc) {
-            ok[c] = true;
-            base[c] = (((int64_t)(f / n_shards) * page_slots
-                        + pos % page_slots) * hkv + kvh) * D;
-          }
-        }
-      }
-      repro::fold_chunk<Tkv, MAX_P, CHUNK>(k_pages, v_pages, base, ok, D,
-                                           lane, scale, qr, acc, m, l);
-    }
-    repro::store_record(smem + (int64_t)(g * wph + w) * (D + 2), acc, m, l,
-                        D, lane);
+// K/V row of a position: through the block table, on this shard only
+struct PagedRows {
+  const int32_t* bt_row;                           // block_table[b]
+  int page_slots, sid, n_shards, np_loc, hkv, kvh, D;
+  __device__ __forceinline__ bool operator()(int pos, int64_t& off) const {
+    const int f = bt_row[pos / page_slots];
+    if (f < 0 || f % n_shards != sid || f / n_shards >= np_loc) return false;
+    off = (((int64_t)(f / n_shards) * page_slots + pos % page_slots) * hkv +
+           kvh) * D;
+    return true;
   }
-  __syncthreads();
-  // log-sum-exp merge of each head's warps; the output stays unnormalised
-  repro::merge_records(smem, G, D, wph, head0, acc_out, m_out, l_out);
+};
+
+template <typename Tkv, int U, int UPL>
+__global__ void __launch_bounds__(sd::Shape<Tkv, U, UPL>::W * 32)
+    gather_attend_kernel(const Tkv* __restrict__ k_pages,
+                         const Tkv* __restrict__ v_pages,
+                         const int32_t* __restrict__ block_table,
+                         const int32_t* __restrict__ lengths, int hkv_loc,
+                         int max_lpages, int page_slots, int hkv, int np_loc,
+                         int sid, int n_shards, int kv_start, sd::Params p) {
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const PagedRows rows{block_table + (int64_t)b * max_lpages, page_slots, sid,
+                       n_shards, np_loc, hkv, kv_start + h, p.D};
+  sd::run<Tkv, U, UPL, false>(k_pages, v_pages, rows,
+                              (int64_t)b * hkv_loc + h, lengths[b], p);
 }
 
 constexpr int kWriteThreads = 256;
@@ -169,31 +140,6 @@ void launch_write(const void* k_new, const void* v_new, void* k_pages,
       static_cast<const uint8_t*>(frame_ro),
       static_cast<const uint8_t*>(write_mask), max_lpages, page_slots, np_loc,
       n_frames, row_elems, sid, n_shards);
-}
-
-template <typename Tq, typename Tkv>
-void launch_attend(const void* q, const void* k_pages, const void* v_pages,
-                   const void* bt, const void* lengths, void* acc, void* m,
-                   void* l, int B, int hkv_loc, int G, int D, int page_slots,
-                   int max_lpages, int hkv, int np_loc, int sid, int n_shards,
-                   int kv_start, int window, float scale, int smem_bytes,
-                   cudaStream_t stream) {
-  dim3 grid(B, hkv_loc);
-  const int threads = kAttendWarps * 32;
-#define REPRO_ATTEND_ARGS                                                     \
-  static_cast<const Tq*>(q), static_cast<const Tkv*>(k_pages),               \
-      static_cast<const Tkv*>(v_pages), static_cast<const int32_t*>(bt),     \
-      static_cast<const int32_t*>(lengths), static_cast<float*>(acc),        \
-      static_cast<float*>(m), static_cast<float*>(l), hkv_loc, G, D,         \
-      page_slots, max_lpages, hkv, np_loc, sid, n_shards, kv_start, window,  \
-      scale
-  if (D <= 128)
-    gather_attend_kernel<Tq, Tkv, 2, 8>
-        <<<grid, threads, smem_bytes, stream>>>(REPRO_ATTEND_ARGS);
-  else
-    gather_attend_kernel<Tq, Tkv, 4, 4>
-        <<<grid, threads, smem_bytes, stream>>>(REPRO_ATTEND_ARGS);
-#undef REPRO_ATTEND_ARGS
 }
 
 }  // namespace
@@ -224,34 +170,39 @@ extern "C" int paged_kv_write(const void* k_new, const void* v_new,
 extern "C" int paged_gather_attend(const void* q, const void* k_pages,
                                    const void* v_pages, const void* bt,
                                    const void* lengths, void* acc, void* m,
-                                   void* l, int B, int hkv_loc, int G, int D,
-                                   int page_slots, int max_lpages, int hkv,
-                                   int np_loc, int sid, int n_shards,
-                                   int kv_start, int window, float scale,
-                                   int q_dtype, int kv_dtype, void* stream) {
+                                   void* l, void* part, void* count, int B,
+                                   int hkv_loc, int G, int D, int page_slots,
+                                   int max_lpages, int hkv, int np_loc,
+                                   int sid, int n_shards, int kv_start,
+                                   int window, float scale, int q_dtype,
+                                   int kv_dtype, void* stream) {
   // the one check of K2's shape limits: the wrapper reports
   // cudaErrorInvalidValue as a head_dim or group the kernel does not take
-  if (D < 2 || D > 256 || D % 2 || G < 1) return (int)cudaErrorInvalidValue;
-  // rows are read in element pairs
-  if (reinterpret_cast<uintptr_t>(q) % (q_dtype == 1 ? 4 : 8) ||
-      (reinterpret_cast<uintptr_t>(k_pages) |
-       reinterpret_cast<uintptr_t>(v_pages)) % (kv_dtype == 1 ? 4 : 8))
+  if (D < 2 || D > 256 || D % 2 || G < 1 || q_dtype < 0 || q_dtype > 1 ||
+      kv_dtype < 0 || kv_dtype > 1)
     return (int)cudaErrorInvalidValue;
-  const int wph = G >= kAttendWarps ? 1 : kAttendWarps / G;
-  const int smem_bytes = (int)sizeof(float) * G * wph * (D + 2);
-  if (smem_bytes > 48 * 1024) return (int)cudaErrorInvalidValue;
+  // rows are read in element pairs at least
+  const uintptr_t kv = reinterpret_cast<uintptr_t>(k_pages) |
+                       reinterpret_cast<uintptr_t>(v_pages);
+  if (reinterpret_cast<uintptr_t>(q) % (q_dtype == 1 ? 4 : 8) ||
+      kv % (kv_dtype == 1 ? 4 : 8))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || hkv_loc == 0) return (int)cudaSuccess;
+  const int S = max_lpages * page_slots;
+  const sd::Params p{q, q_dtype, acc, 0, static_cast<float*>(m),
+                     static_cast<float*>(l), static_cast<float*>(part),
+                     static_cast<unsigned*>(count), G, S, D, window, scale};
+  const dim3 grid(sd::n_splits(S), hkv_loc, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_ATTEND(TQ, TKV)                                                \
-  launch_attend<TQ, TKV>(q, k_pages, v_pages, bt, lengths, acc, m, l, B,     \
-                         hkv_loc, G, D, page_slots, max_lpages, hkv, np_loc, \
-                         sid, n_shards, kv_start, window, scale, smem_bytes, \
-                         s)
-  if (q_dtype == 0 && kv_dtype == 0) REPRO_ATTEND(float, float);
-  else if (q_dtype == 0 && kv_dtype == 1) REPRO_ATTEND(float, __nv_bfloat16);
-  else if (q_dtype == 1 && kv_dtype == 0) REPRO_ATTEND(__nv_bfloat16, float);
-  else if (q_dtype == 1 && kv_dtype == 1)
-    REPRO_ATTEND(__nv_bfloat16, __nv_bfloat16);
-  else return (int)cudaErrorInvalidValue;
-#undef REPRO_ATTEND
-  return (int)cudaGetLastError();
+  return sd::dispatch(kv_dtype, D, kv, [&](auto var) {
+    using Var = decltype(var);
+    using T = typename Var::T;
+    const int smem = Var::W * (D + 2) * (int)sizeof(float);
+    gather_attend_kernel<T, Var::U, Var::UPL><<<grid, Var::W * 32, smem, s>>>(
+        static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),
+        static_cast<const int32_t*>(bt), static_cast<const int32_t*>(lengths),
+        hkv_loc, max_lpages, page_slots, hkv, np_loc, sid, n_shards, kv_start,
+        p);
+    return (int)cudaGetLastError();
+  });
 }

@@ -11,11 +11,11 @@ branch of :func:`repro_torch.kernels.paged_decode.flash_ops.decode_attention_par
 which agrees with the kernel on empty rows too.
 
 The kernel splits each row's positions into :data:`SPLIT`-long pieces, one
-block each, and merges them in the same launch: the wrapper passes scratch
-for the pieces' records (``torch.empty``) and a per-device buffer of
-counters, one per (sequence, KV head), that the kernel leaves at 0 after
-every launch.  Launches on one device share that buffer, so they must run
-in stream order (the port uses PyTorch's current stream throughout).
+block each, and merges them in the same launch (the split walk it shares
+with K2, ``kernels/csrc/split_decode.cuh``): the wrapper passes scratch for
+the pieces' records (``torch.empty``) and a per-device buffer of counters,
+one per (sequence, KV head), that the kernel leaves at 0 after every launch
+(:func:`repro_torch.kernels.build.counter_buffer`).
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels.build import SPLIT, n_splits  # noqa: F401
 
 #: launches since the last :func:`reset_launch_counts`
 LAUNCHES = {"flash_decode": 0}
@@ -31,10 +32,6 @@ LAUNCHES = {"flash_decode": 0}
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_decode.cu",)
 LIBRARY = "flash_decode"
 
-#: positions per block (kSplit in csrc/flash_decode.cu)
-SPLIT = 64
-
-_counters: dict[torch.device, torch.Tensor] = {}
 
 
 def reset_launch_counts() -> None:
@@ -52,21 +49,6 @@ def _bind(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_decode.argtypes = [p] * 9 + [i] * 6 + [f, i, i, p]
     lib.flash_decode.restype = i
-
-
-def n_splits(s: int) -> int:
-    """Blocks per (sequence, KV head) for a cache of ``s`` positions."""
-    return max(1, -(-s // SPLIT))
-
-
-def _counter_buffer(dev: torch.device, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed int32 counters on ``dev``, kept across calls
-    (the kernel resets what it uses)."""
-    buf = _counters.get(dev)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1), dtype=torch.int32, device=dev)
-        _counters[dev] = buf
-    return buf
 
 
 def flash_decode(q, k, v, lengths, *, scale: float | None = None,
@@ -95,7 +77,7 @@ def flash_decode(q, k, v, lengths, *, scale: float | None = None,
     s = k.shape[2]
     part = torch.empty((b, hkv, n_splits(s), g, d + 2), dtype=torch.float32,
                        device=dev)
-    count = _counter_buffer(dev, b * hkv)
+    count = _build.counter_buffer(LIBRARY, dev, b * hkv)
     lib = _build.load(LIBRARY, SOURCES, _bind)
     with torch.cuda.device(dev):
         err = lib.flash_decode(

@@ -16,7 +16,13 @@ translation rides the memory access instead of a host-side owner mask:
     pages this shard owns, attends the G grouped query heads to positions
     ``< len`` (and ``>= len - window``) with an online softmax, and returns
     UNNORMALISED ``(acc, m, l)`` in f32 for a log-sum-exp merge across
-    shards.
+    shards.  The walk is split into ``build.SPLIT``-long pieces of positions,
+    one block each, merged in split order by the last block of a row in the
+    same launch (the split walk it shares with K4,
+    ``kernels/csrc/split_decode.cuh``): the wrapper passes scratch for the
+    pieces' records (``torch.empty``) and a per-device buffer of counters,
+    one per (sequence, KV head), that the kernel leaves at 0
+    (:func:`repro_torch.kernels.build.counter_buffer`).
 
 ``meta`` is ``(sid, n_shards, kv_start)``: the shard this call plays, the
 number of shards frames are spread over, and the first KV head of ``q``.
@@ -59,7 +65,7 @@ def _bind(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.paged_kv_write.argtypes = [p] * 8 + [i] * 10 + [p]
     lib.paged_kv_write.restype = i
-    lib.paged_gather_attend.argtypes = ([p] * 8 + [i] * 12 + [f]
+    lib.paged_gather_attend.argtypes = ([p] * 10 + [i] * 12 + [f]
                                         + [i] * 2 + [p])
     lib.paged_gather_attend.restype = i
 
@@ -164,21 +170,25 @@ def paged_gather_attend(q, k_pages, v_pages, block_table, lengths, meta, *,
     l = torch.empty((b, hkv_loc, g, 1), dtype=torch.float32, device=dev)
     if b == 0 or hkv_loc == 0:
         return acc, m, l
+    max_lpages = block_table.shape[1]
+    part = torch.empty((b, hkv_loc, _build.n_splits(max_lpages * slots), g,
+                        d + 2),
+                       dtype=torch.float32, device=dev)
+    count = _build.counter_buffer(LIBRARY, dev, b * hkv_loc)
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.paged_gather_attend(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_table.data_ptr(), lengths.data_ptr(), acc.data_ptr(),
-            m.data_ptr(), l.data_ptr(), b, hkv_loc, g, d, slots,
-            block_table.shape[1], hkv, np_loc, sid, n_shards, kv_start,
-            0 if window is None else int(window), scale, q_code, kv_code,
-            _build.stream_of(dev))
+            m.data_ptr(), l.data_ptr(), part.data_ptr(), count.data_ptr(), b,
+            hkv_loc, g, d, slots, max_lpages, hkv, np_loc, sid, n_shards,
+            kv_start, 0 if window is None else int(window), scale, q_code,
+            kv_code, _build.stream_of(dev))
     if err == _build.CUDA_ERROR_INVALID_VALUE:
         raise ValueError(
             f"paged_gather_attend refused D={d}, G={g} (CUDA error {err}): "
-            "the kernel takes even head dims 2..256, groups whose per-warp "
-            "softmax records fit 48 KB of shared memory and pointers "
-            "aligned to an element pair (csrc/paged_decode.cu)")
+            "the kernel takes even head dims 2..256 and pointers aligned to "
+            "an element pair (csrc/paged_decode.cu)")
     if err:
         raise RuntimeError(f"paged_gather_attend launch failed: CUDA error {err}")
     LAUNCHES["paged_gather_attend"] += 1

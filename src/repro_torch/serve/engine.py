@@ -82,6 +82,8 @@ class EngineConfig:
     slots: int = 4
     max_len: int = 256
     eos_id: int | None = None
+    #: accepted for the reference's signature; decoding is always greedy
+    greedy: bool = True
     #: "swap" parks preempted sequences' pages on host and resumes them with
     #: a swap-in; "recompute" requeues and re-prefills.
     preempt_mode: str = "swap"
@@ -318,6 +320,12 @@ class ServeEngine:
             self.cache["vm"] = {k: self._to_device(v)
                                 for k, v in self.blocks.tables().items()}
             self.blocks.dirty = False
+
+    def pool_stats(self) -> dict:
+        """The BlockManager's frame-pool stats; ``{}`` for the batch layout."""
+        if self.blocks is None:
+            return {}
+        return self.blocks.stats()
 
     def telemetry(self) -> dict:
         """Live per-request SLO telemetry summary (decode-step

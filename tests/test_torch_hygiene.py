@@ -1,8 +1,11 @@
 """Port hygiene: the PyTorch package and chip_smoke.py import neither JAX
-nor the reference package, and the entry points refuse to fall back to the
-CPU silently when no CUDA device is present."""
+nor the reference package, the entry points refuse to fall back to the
+CPU silently when no CUDA device is present, and the kernel packages export
+the reference's public names."""
 import ast
+import importlib
 import pathlib
+import types
 
 import pytest
 
@@ -27,6 +30,32 @@ def test_port_imports_no_jax_and_no_reference():
            for path in PORT_FILES for name in _imports(path)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
+
+
+def _public(module):
+    """A module's public names: each callable as such, each submodule alias
+    by its path below the top package."""
+    out = {}
+    for name in dir(module):
+        value = getattr(module, name)
+        if name.startswith("_"):
+            continue
+        if isinstance(value, types.ModuleType):
+            out[name] = value.__name__.split(".", 1)[1]
+        elif callable(value):
+            out[name] = "callable"
+    return out
+
+
+def test_kernel_packages_export_the_reference_names():
+    """``repro_torch.kernels.<package>`` has the reference's public functions
+    and its ``kernel``/``ops``/``ref``-style submodule aliases, naming the
+    same modules, for the paged-decode package and the reference's two
+    import shims."""
+    for package in ("paged_decode", "decode_attention", "emem_gather"):
+        reference = importlib.import_module(f"repro.kernels.{package}")
+        port = importlib.import_module(f"repro_torch.kernels.{package}")
+        assert _public(port) == _public(reference), package
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -69,7 +69,8 @@ def runs():
                 retain_frames=case["retain_frames"])) as eng:
             done = jax_replay(jax_generate(JaxTraceConfig(**TRACE)),
                               JaxScheduler(eng, JaxSchedulerConfig(window=4)))
-        stats = eng.shutdown()
+        stats = dict(eng.shutdown())
+        stats["pool_stats"] = eng.pool_stats()
         model = from_jax_params(ModelConfig(**cfg_kw),
                                 jax.tree.map(np.asarray, params),
                                 device="cpu")
@@ -78,23 +79,29 @@ def runs():
 
 
 def _serve_trace(model, case, **ecfg_kw):
+    # greedy=True: the reference's field, accepted and never read by either
     with ServeEngine(model, EngineConfig(
-            slots=SLOTS, max_len=MAX_LEN, preempt_mode=case["preempt_mode"],
+            slots=SLOTS, max_len=MAX_LEN, greedy=True,
+            preempt_mode=case["preempt_mode"],
             retain_frames=case["retain_frames"], **ecfg_kw)) as eng:
         done = replay(generate(TraceConfig(**TRACE)),
                       Scheduler(eng, SchedulerConfig(window=4)))
-    stats = eng.shutdown()                 # leak detector: raises on leak
+    stats = dict(eng.shutdown())           # leak detector: raises on leak
+    stats["pool_stats"] = eng.pool_stats()
     return {r.uid: tuple(r.output) for r in done}, stats
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_engine_matches_jax_engine(runs, case):
-    """Same tokens, same telemetry, same counters, clean shutdown."""
+    """Same tokens, same telemetry, same counters and frame-pool stats,
+    clean shutdown."""
     model, ref_out, ref_stats = runs[case]
     out, stats = _serve_trace(model, CASES[case])
     assert out == ref_out
     assert len(out) == TRACE["n_requests"]
     assert stats["telemetry"] == ref_stats["telemetry"]
+    assert stats["pool_stats"] == ref_stats["pool_stats"]
+    assert stats["pool_stats"]["live_seqs"] == 0     # a BlockManager's stats
     assert stats == ref_stats
     assert stats["leaked_frames"] == 0
     if case == "pooled-swap-retain":
