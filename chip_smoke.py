@@ -65,15 +65,27 @@ Each phase prints one JSON line with its seconds:
 9. ssd        -- K5 against its plain version (``ref.ssd_chunked``) at the
                  prefill's shape (Bt 8, S 512, H 48, P 64, N 128, G 1,
                  chunk 128), at S = 200 and 511 with G = 2 and chunk 64, at
-                 the smoke config's widths (P 32, N 16, chunk 8) and with a
-                 chunk of 100, f32 and bf16: y and the final state; kernel
-                 / plain / bound times;
+                 the smoke config's widths (P 32, N 16, chunk 8), with a
+                 chunk of 100 and at three narrower widths (SSD_NARROW),
+                 f32 and bf16: y and the final state, each through the
+                 variant the wrapper picks (the tensor cores in bf16 at
+                 all but the smoke widths and chunk 100), the CUDA-core
+                 variant forced
+                 at the prefill shape, a forced tensor-core launch refusing
+                 the last two shapes, two tensor-core launches bit for bit;
+                 kernel (both variants, bf16 and f32) / plain / bound times;
 10. ssm_prefill -- full-width mamba2-780m Model.prefill of 8 x 512 and
                  8 x 511 tokens with K5 (attn_impl "pallas") and with its
-                 plain version ("ref") in f32: logits and conv/ssd cache
-                 agree (SSM_ORDER_FACTOR), prefill(510) plus one decode
-                 step reproduces prefill(511); in bf16 the timed prefill
-                 launches K5 once per layer;
+                 plain version ("ref"), f32 and bf16: K5 once per layer, in
+                 bf16 on the tensor cores; layer 0's conv/ssd cache and the
+                 logits (f32: every layer's cache too) agree
+                 (SSM_ORDER_FACTOR); in bf16 K5 on the real inputs of
+                 the first 4 layers against its plain version, and layer
+                 0's ssd cache more tightly, each gate failing bf16
+                 operands alone; in f32 prefill(510) plus one decode
+                 step reproduces prefill(511); in bf16 the device time of a
+                 steady prefill and K5's share, with K5 on the tensor cores
+                 and forced to the CUDA cores;
 11. ssm_serve  -- the full-width mamba2-780m engine + scheduler serve the
                  phase-4 trace on the batch layout in bf16 (its decode is
                  the recurrent step, plain torch; no kernel launches), a
@@ -156,19 +168,31 @@ SSD_SHAPE = dict(bt=8, s=512, h=48, p=64, n=128, g=1, chunk=128)
 # bf16 rounding step (2^-7 |y|) + 1e-4, since both round an f32 result that
 # may differ in its last bits, and the f32 state within rtol/atol 1e-3
 SSD_TOL = {"float32": (1e-4, 1e-4, 1e-4), "bfloat16": (2.0 ** -7, 1e-4, 1e-3)}
-# phase 10, f32, the kernel path against the plain path (attn_impl "ref":
-# K5's plain version, the same 128-row chunks) over 48 random-weight
-# layers: layer 0 (the same inputs to both) within LOGIT_RTOL of max
-# |value|; the logits and every layer's cache within LOGIT_RTOL or, where
+# phase 9's narrower K5 cases (P, N, chunk, S, H, G): bf16 takes them to the
+# tensor cores' run-time instance, each with a tail chunk
+SSD_NARROW = ((32, 64, 32, 200, 8, 2), (16, 16, 16, 37, 4, 1),
+              (48, 96, 48, 100, 6, 3))
+# phase 10, the kernel path against the plain path (attn_impl "ref": K5's
+# plain version, the same 128-row chunks) over 48 random-weight layers:
+# layer 0 (the same inputs to both) within LOGIT_RTOL of max |value|; the
+# logits (f32: and every layer's cache) within LOGIT_RTOL or, where
 # larger, SSM_ORDER_FACTOR times the plain path's own disagreement with
-# itself at half the chunk.  The random weights drive dt * A to cumulative
-# sums near 1e4 inside a chunk, where f32 resolves ~1e-3, so any change of
-# summation order moves the decays by ~1e-4 relative per layer and 48
-# layers carry it to ~1e-2: the same for the kernel as for a second plain
-# order (this phase on an NVIDIA H100 at 700 W: the plain path at chunk 64
-# against 128 differs by 6.8e-3 in the logits, the kernel path by 1.4e-2,
-# while layer 0 agrees within 6.3e-5).
+# itself at half the chunk, in the same dtype.  The random weights drive
+# dt * A to cumulative sums near 1e4 inside a chunk, where f32 resolves
+# ~1e-3, so any change of summation order moves the decays by ~1e-4
+# relative per layer and 48 layers carry it to ~1e-2: the same for the
+# kernel as for a second plain order (this phase on an NVIDIA H100 at 700
+# W: the plain path at chunk 64 against 128 differs by 6.8e-3 in the
+# logits, the kernel path by 1.4e-2, while layer 0 agrees within 6.3e-5).
+# In bf16 every layer also rounds its activations, and the plain path's
+# own half-chunk disagreement reaches ~0.6 of max |logit| (same card), so
+# the logits only bound the drift and cannot see K5.  K5 is held there by
+# layer 0's ssd cache within SSM_ORDER_FACTOR times the plain path's own
+# half-chunk disagreement at layer 0 (same card: plain 7.5e-5, the kernel
+# 6.4e-5, bf16 operands alone 2.9e-3), and on the real inputs of the
+# first SSM_REAL_LAYERS layers (ssm_k5_real).
 SSM_ORDER_FACTOR = 4
+SSM_REAL_LAYERS = 4
 
 SERVE_ENGINE = dict(slots=8, max_len=512, max_fused_steps=8, retain_frames=16)
 # 32 frames of 16 slots: a 194-token prompt with 48 new tokens needs 16
@@ -750,7 +774,7 @@ KERNEL_SYMBOLS = {"paged_kv_write": ("kv_write_kernel",),
                   "paged_gather_attend": ("gather_attend_kernel",),
                   "flash_attention": ("fa_kernel", "fa_tc_kernel"),
                   "flash_decode": ("flash_decode_kernel",),
-                  "ssd": ("ssd_kernel",)}
+                  "ssd": ("ssd_kernel", "ssd_tc_kernel", "ssd_cb_kernel")}
 
 
 def phase_profile(dev, layout: str, steps: int = 10, cfg=None):
@@ -1232,19 +1256,22 @@ def ssd_case(seed, dtype, dev, bt, s, h, p, n, g):
             t(rng.normal(size=(h,))))
 
 
-def check_k5(args, chunk, err):
+def check_k5(args, chunk, err, variant=None):
     """K5 against ref.ssd_chunked on one input set: y and the final state
-    within SSD_TOL; folds the max errors into ``err``."""
+    within SSD_TOL; folds the max errors into ``err``.  ``variant``: None
+    lets the wrapper pick.  Returns the variant that ran."""
     import torch
     from repro_torch.kernels.mamba2_ssd import kernel as K5
     from repro_torch.kernels.mamba2_ssd import ref
-    got = K5.ssd(*args, chunk=chunk)
+    tc = K5.LAUNCHES["ssd_tc"]
+    got = K5.ssd(*args, chunk=chunk, variant=variant)
+    ran = "tensor_core" if K5.LAUNCHES["ssd_tc"] > tc else "cuda_core"
     want = ref.ssd_chunked(*args, chunk=chunk)
     torch.cuda.synchronize()
     dtype = str(args[0].dtype).split(".")[1]
     rtol_y, atol_y, tol_state = SSD_TOL[dtype]
     what = (f"{dtype} x {tuple(args[0].shape)} B {tuple(args[3].shape)} "
-            f"chunk={chunk}")
+            f"chunk={chunk} ({ran})")
     for key, g, w, rtol, atol in (("k5", got[0], want[0], rtol_y, atol_y),
                                   ("k5_state", got[1], want[1], tol_state,
                                    tol_state)):
@@ -1253,26 +1280,73 @@ def check_k5(args, chunk, err):
         err[key] = max(err[key], e)
         if not bool((dlt <= atol + rtol * w.float().abs()).all()):
             raise AssertionError(f"{key} differs from plain by {e}: {what}")
+    return ran
+
+
+def same_k5_bits(args, chunk) -> bool:
+    """Two tensor-core launches on the same inputs give the same bits."""
+    import torch
+    from repro_torch.kernels.mamba2_ssd import kernel as K5
+    a = K5.ssd(*args, chunk=chunk, variant="tensor_core")
+    b = K5.ssd(*args, chunk=chunk, variant="tensor_core")
+    return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def phase_ssd(dev):
     """K5 against its plain version at the prefill's shape and at other
-    lengths (a tail chunk), groups and chunks, f32 and bf16."""
+    lengths (a tail chunk), groups and chunks, f32 and bf16, each through
+    the variant the wrapper picks; the CUDA-core variant forced at the
+    prefill shape; the tensor-core variant refusing the shapes it does not
+    take and giving the same bits twice."""
     import torch
+    from repro_torch.kernels.mamba2_ssd import kernel as K5
     err = {"k5": 0.0, "k5_state": 0.0}
+    ran = {"tensor_core": 0, "cuda_core": 0}
+
+    def k5(*a, **kw):
+        ran[check_k5(*a, err, **kw)] += 1
     main = {k: v for k, v in SSD_SHAPE.items() if k != "chunk"}
+    chunk = SSD_SHAPE["chunk"]
     for dt in (torch.float32, torch.bfloat16):
-        check_k5(ssd_case(61, dt, dev, **main), SSD_SHAPE["chunk"], err)
+        x = ssd_case(61, dt, dev, **main)
+        k5(x, chunk)
+        k5(x, chunk, variant="cuda_core")
         for s in (200, 511):
-            check_k5(ssd_case(67, dt, dev, bt=2, s=s, h=48, p=64, n=128, g=2),
-                     64, err)
-        # the smoke config's widths and chunk; a chunk that is no multiple
-        # of the kernel's 32-row tiles
-        check_k5(ssd_case(73, dt, dev, bt=2, s=37, h=4, p=32, n=16, g=1), 8,
-                 err)
-        check_k5(ssd_case(79, dt, dev, bt=2, s=100, h=8, p=64, n=128, g=1),
-                 100, err)
-    return err, time_ssd(dev)
+            k5(ssd_case(67, dt, dev, bt=2, s=s, h=48, p=64, n=128, g=2), 64)
+        # the smoke config's widths and chunk, and a chunk that is no
+        # multiple of the CUDA-core variant's 32-row tiles nor of the
+        # tensor cores' 16 rows: in bf16 both go to the CUDA cores by
+        # choice, and a forced tensor-core launch raises
+        smoke = ssd_case(73, dt, dev, bt=2, s=37, h=4, p=32, n=16, g=1)
+        c100 = ssd_case(79, dt, dev, bt=2, s=100, h=8, p=64, n=128, g=1)
+        k5(smoke, 8)
+        k5(c100, 100)
+        # narrower widths that bf16 sends to the tensor cores' run-time
+        # instance, each with a tail chunk: idle warps (P < 64, N < 128,
+        # chunk < 128) and the swizzles of 2, 4, 6 and 12 16-byte chunks
+        for seed, (p, n, ch, s, h, g) in enumerate(SSD_NARROW):
+            k5(ssd_case(97 + seed, dt, dev, bt=2, s=s, h=h, p=p, n=n, g=g),
+               ch)
+        if dt != torch.bfloat16:
+            continue
+        for what, xr, ch in (("P 32, N 16, chunk 8", smoke, 8),
+                             ("chunk 100", c100, 100)):
+            if K5.variant_for(dt, xr[0].shape[3], xr[3].shape[3], ch) \
+                    != "cuda_core":
+                raise AssertionError(f"K5 picks the tensor cores for {what}")
+            try:
+                K5.ssd(*xr, chunk=ch, variant="tensor_core")
+            except ValueError:
+                pass
+            else:
+                raise AssertionError(f"K5's tensor-core variant took {what}")
+        if not same_k5_bits(x, chunk):
+            raise AssertionError("K5: two tensor-core launches differ")
+    # the tensor cores ran bf16 at the prefill shape, at S 200 and 511 and
+    # at the narrower widths
+    if ran["tensor_core"] != 3 + len(SSD_NARROW):
+        raise AssertionError(f"K5 cases by variant: {ran}")
+    return err, {"k5_cases_by_variant": ran, **time_ssd(dev)}
 
 
 def ssd_work(args, chunk):
@@ -1293,10 +1367,11 @@ def ssd_work(args, chunk):
 
 
 def time_ssd(dev):
-    """Kernel and plain times at the prefill's shape in bf16, cycling over
-    three input sets (81 MB, past the 50 MB L2), as each layer's scan finds
-    its inputs cold.  No single PyTorch call computes the scan, so K5 has
-    no library time."""
+    """Kernel and plain times at the prefill's shape, cycling over three
+    input sets (81 MB in bf16, past the 50 MB L2), as each layer's scan
+    finds its inputs cold: bf16 through the variant the wrapper picks (the
+    tensor cores) and forced to the CUDA cores, and f32 (the CUDA cores).
+    No single PyTorch call computes the scan, so K5 has no library time."""
     import torch
     from repro_torch.kernels.mamba2_ssd import kernel as K5
     from repro_torch.kernels.mamba2_ssd import ref
@@ -1305,9 +1380,11 @@ def time_ssd(dev):
     xs = [ssd_case(83 + i, torch.bfloat16, dev, **main) for i in range(3)]
     it = itertools.count()
 
-    def pick():
-        return xs[next(it) % len(xs)]
+    def pick(sets=xs):
+        return sets[next(it) % len(sets)]
     out = {"k5": timed(lambda: K5.ssd(*pick(), chunk=chunk)),
+           "k5_cuda_core": timed(lambda: K5.ssd(*pick(), chunk=chunk,
+                                                variant="cuda_core")),
            "k5_plain": timed(lambda: ref.ssd_chunked(*pick(), chunk=chunk),
                              iters=10)}
     nbytes, ops = ssd_work(xs[0], chunk)
@@ -1315,6 +1392,9 @@ def time_ssd(dev):
     out.update(k5_bound_ms=max(t_bytes, t_ops) * 1e3,
                k5_bound_by="bytes" if t_bytes >= t_ops else "operations",
                k5_bytes=nbytes, k5_ops=ops)
+    del xs
+    f32 = [ssd_case(89 + i, torch.float32, dev, **main) for i in range(3)]
+    out["k5_f32"] = timed(lambda: K5.ssd(*pick(f32), chunk=chunk))
     return out
 
 
@@ -1332,13 +1412,186 @@ def rel_err(got, want) -> float:
             / want.float().abs().max()).item()
 
 
+def ssm_prefill_profile(model, batch, variant=None):
+    """Where a mamba2 prefill's time goes, in a steady state: wall and
+    device ms per prefill, the busy share and K5's device ms (its pre-pass
+    included).  ``variant`` forces K5's variant for the run (the CUDA
+    cores: the kernel of the tree before the tensor-core variant)."""
+    import torch
+    from repro_torch.kernels.mamba2_ssd import kernel as K5
+    pick = K5.variant_for
+    if variant is not None:
+        K5.variant_for = lambda *a, **kw: variant
+    try:
+        model.prefill(batch, PREFILL_MAX_LEN)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            model.prefill(batch, PREFILL_MAX_LEN)
+        torch.cuda.synchronize()
+        steady_ms = (time.perf_counter() - t0) / 3 * 1e3
+        dev_ms, by_name = device_profile(
+            lambda: model.prefill(batch, PREFILL_MAX_LEN), iters=3, warmup=0)
+    finally:
+        K5.variant_for = pick
+    return {"steady_prefill_ms": steady_ms, "device_ms_per_prefill": dev_ms,
+            "busy_share": None if dev_ms is None else dev_ms / steady_ms,
+            "k5_device_ms_per_prefill": sum(
+                v for k, v in by_name.items()
+                if any(sym in k for sym in KERNEL_SYMBOLS["ssd"]))}
+
+
+def ssd_rounded(x, dt, A, B, C, D, chunk, split):
+    """``ref.ssd_chunked``'s algebra (S a multiple of ``chunk``) with the f32
+    operands of the tensor-core variant's products rounded as that variant
+    rounds them: the decay-weighted C B^T tile, the incoming state and x w
+    (w_s = exp(L_end - L_s) dt_s), each as bf16 hi + lo (``split``) or as
+    bf16 alone (a kernel without the split); x, B and C are bf16 already.
+    Returns (y in x's dtype, the f32 final state)."""
+    import torch
+    from repro_torch.kernels.mamba2_ssd import ref
+
+    def rnd(t):
+        hi = t.bfloat16().float()
+        return hi + (t - hi).bfloat16().float() if split else hi
+    bt, s, h, p = x.shape
+    n, nc = B.shape[-1], s // chunk
+    xc = x.float().reshape(bt, nc, chunk, h, p)
+    bc = ref._expand_groups(B, h).float().reshape(bt, nc, chunk, h, n)
+    cc = ref._expand_groups(C, h).float().reshape(bt, nc, chunk, h, n)
+    dtc = dt.float().reshape(bt, nc, chunk, h)
+    L = torch.cumsum(dtc * A, dim=2)
+    mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                 device=x.device))[None, None, :, :, None]
+    diff = torch.where(mask, L[:, :, :, None] - L[:, :, None], 0.0)
+    cb = torch.einsum("bcthn,bcshn->bctsh", cc, bc)
+    tile = torch.where(mask, cb * torch.exp(diff) * dtc[:, :, None], 0.0)
+    del diff, cb
+    y = torch.einsum("bctsh,bcshp->bcthp", rnd(tile), xc)
+    del tile
+    state = torch.zeros(bt, h, n, p, device=x.device)
+    for c in range(nc):
+        y[:, c] += torch.exp(L[:, c])[..., None] * torch.einsum(
+            "bthn,bhnp->bthp", cc[:, c], rnd(state))
+        w = torch.exp(L[:, c, -1:] - L[:, c]) * dtc[:, c]
+        upd = torch.einsum("bthn,bthp->bhnp", bc[:, c],
+                           rnd(xc[:, c] * w[..., None]))
+        state = state * torch.exp(L[:, c, -1])[..., None, None] + upd
+    y = y.reshape(bt, s, h, p) + x.float() * D[None, None, :, None]
+    return y.to(x.dtype), state
+
+
+def ssm_k5_inputs(model, batch, layers: int):
+    """The inputs K5 is given in the first ``layers`` layers of one prefill
+    of ``batch`` (copies), with their chunk."""
+    from repro_torch.kernels.mamba2_ssd import kernel as K5
+    got, launch = [], K5.ssd
+
+    def capture(*args, chunk, variant=None):
+        if len(got) < layers:
+            got.append(([a.clone() for a in args], chunk))
+        return launch(*args, chunk=chunk, variant=variant)
+    K5.ssd = capture
+    try:
+        model.prefill(batch, PREFILL_MAX_LEN)
+    finally:
+        K5.ssd = launch
+    return got
+
+
+def ssd_readings(got, want, dtype: str) -> dict:
+    """``got`` against ``want`` (each (y, final state)): the shares of y
+    and state outside SSD_TOL, and the largest difference of each over its
+    max |want|."""
+    rtol_y, atol_y, tol_state = SSD_TOL[dtype]
+    out = {}
+    for key, g, w, rtol, atol in (("y", got[0], want[0], rtol_y, atol_y),
+                                  ("state", got[1], want[1], tol_state,
+                                   tol_state)):
+        g, w = g.float(), w.float()
+        d = (g - w).abs()
+        out[f"{key}_outside"] = (d > atol + rtol * w.abs()).float().mean().item()
+        out[f"{key}_rel"] = (d.max() / w.abs().max()).item()
+    return out
+
+
+def ssm_k5_real(model, batch):
+    """K5 on the real inputs of the first SSM_REAL_LAYERS layers of a bf16
+    prefill, captured from the kernel path (so each layer's inputs carry
+    K5's output of the layer before), against ref.ssd_chunked: the final
+    state within SSD_TOL, and no larger a share of y outside SSD_TOL than
+    SSM_ORDER_FACTOR times the plain version's own at half the chunk.  (The
+    real cumulative sums leave y ill-conditioned: ~1.4e-4 of it lies
+    outside SSD_TOL for the f32 CUDA-core variant as for the tensor cores,
+    ~7e-5 for the plain version at half the chunk.)  The same gates must
+    fail on the products rounded to bf16 alone (``ssd_rounded``), or they
+    could not see a kernel without the split.  Returns the readings per
+    layer: the kernel through the variant the wrapper picks (the tensor
+    cores), the CUDA-core variant, the plain version at half the chunk and
+    the products rounded to bf16 alone and split."""
+    import torch
+    from repro_torch.kernels.mamba2_ssd import kernel as K5
+    from repro_torch.kernels.mamba2_ssd import ref
+    out = []
+    for layer, (args, chunk) in enumerate(
+            ssm_k5_inputs(model, batch, SSM_REAL_LAYERS)):
+        want = ref.ssd_chunked(*args, chunk=chunk)
+        tc = K5.LAUNCHES["ssd_tc"]
+        got = {"kernel": K5.ssd(*args, chunk=chunk)}
+        if K5.LAUNCHES["ssd_tc"] != tc + 1:
+            raise AssertionError("K5 on real bf16 inputs: not the tensor cores")
+        got["cuda_core"] = K5.ssd(*args, chunk=chunk, variant="cuda_core")
+        got["plain_half_chunk"] = ref.ssd_chunked(*args, chunk=chunk // 2)
+        got["split"] = ssd_rounded(*args, chunk, True)
+        got["bf16_only"] = ssd_rounded(*args, chunk, False)
+        torch.cuda.synchronize()
+        r = {k: ssd_readings(v, want, "bfloat16") for k, v in got.items()}
+        r["max_abs"] = {"y": want[0].float().abs().max().item(),
+                        "state": want[1].abs().max().item()}
+        del want, got
+        lim_y = SSM_ORDER_FACTOR * r["plain_half_chunk"]["y_outside"]
+
+        def passes(x):
+            return x["state_outside"] == 0.0 and x["y_outside"] <= lim_y
+        if not passes(r["kernel"]):
+            raise AssertionError(
+                f"K5 on layer {layer}'s real inputs: {r['kernel']} against "
+                f"ref.ssd_chunked (y outside SSD_TOL limit {lim_y})")
+        if passes(r["bf16_only"]):
+            raise AssertionError(
+                f"K5's real-input gate at layer {layer} passes bf16 operands "
+                f"alone: {r['bf16_only']}")
+        out.append(r)
+    return out
+
+
+def ssm_bf16_only_cache(model, batch):
+    """The prefill's ssd cache with K5 replaced by ``ssd_rounded`` with bf16
+    operands alone: what a kernel without the split would leave."""
+    from repro_torch.kernels.mamba2_ssd import kernel as K5
+    launch = K5.ssd
+    K5.ssd = lambda *a, chunk, variant=None: ssd_rounded(*a, chunk, False)
+    try:
+        _, cache = model.prefill(batch, PREFILL_MAX_LEN)
+    finally:
+        K5.ssd = launch
+    return cache["b0"]["ssd"]
+
+
 def phase_ssm_prefill(dev, dtype: str):
     """Full-width mamba2-780m prefill of 8 x 512 and 8 x 511 tokens with K5
-    (attn_impl "pallas"): K5 launched once per layer per call.  In f32 the
-    logits and conv/ssd cache agree with the plain path ("ref") as
-    SSM_ORDER_FACTOR says, and prefill(510) plus one decode step reproduces
-    prefill(511) to the same limit.  Returns (K5 launches of the 8 x 512
-    prefill, results)."""
+    (attn_impl "pallas"): K5 launched once per layer per call, in bf16 on
+    the tensor cores.  Against the plain path ("ref"): layer 0's conv and
+    ssd cache within LOGIT_RTOL; in f32 the logits and every layer's cache,
+    in bf16 the logits, within the larger of LOGIT_RTOL and SSM_ORDER_FACTOR
+    times the plain path's own half-chunk disagreement.  In bf16 at 8 x
+    512, layer 0's ssd cache within SSM_ORDER_FACTOR times that
+    disagreement at layer 0, and K5 on the real inputs of the first
+    layers (ssm_k5_real); both must fail with bf16 operands alone.  In f32
+    prefill(510) plus one decode step reproduces prefill(511) to the same
+    limit; in bf16 a steady-state device profile of the 8 x 512 prefill,
+    and the same with K5 forced to the CUDA cores.  Returns (K5 launches
+    of the 8 x 512 prefill, results)."""
     import torch
     from repro_torch.kernels.mamba2_ssd import kernel as K5
     from repro_torch.models import transformer as T
@@ -1360,46 +1613,81 @@ def phase_ssm_prefill(dev, dtype: str):
         logits, cache = model.prefill(batch, PREFILL_MAX_LEN)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        launches = K5.LAUNCHES["ssd"]
+        launches, tc = K5.LAUNCHES["ssd"], K5.LAUNCHES["ssd_tc"]
         if launches != cfg.n_layers:
             raise AssertionError(f"ssd: {launches} launches in one prefill of "
                                  f"{cfg.n_layers} layers")
+        # bf16 goes to the tensor cores (P 64, N 128, chunk 128), f32 to the
+        # CUDA cores
+        if tc != (cfg.n_layers if dtype == "bfloat16" else 0):
+            raise AssertionError(f"ssd: {tc} tensor-core launches in one "
+                                 f"{dtype} prefill of {cfg.n_layers} layers")
         if not bool(torch.isfinite(logits[:, :vocab]).all()):
             raise AssertionError(f"prefill of {s} ({dtype}): logits not finite")
         main_launches = main_launches or launches
         r = {"prefill_ms": wall_ms, "ssd_launches": launches,
+             "ssd_tc_launches": tc,
              "prompt_tokens_per_s": PREFILL_B * s / wall_ms * 1e3}
-        if dtype == "float32":
-            plain = {}
-            for chunk in (cfg.ssd_chunk, cfg.ssd_chunk // 2):
-                t0 = time.perf_counter()
-                pl, pc = T.prefill(
-                    dataclasses.replace(cfg, attn_impl="ref",
-                                        ssd_chunk=chunk), model.params,
-                    batch, PREFILL_MAX_LEN, periods=model.periods())
-                torch.cuda.synchronize()
-                r.setdefault("plain_prefill_ms", (time.perf_counter() - t0)
-                             * 1e3)
-                plain[chunk] = {"logits": pl[:, :vocab], **pc["b0"]}
-            ref, other = plain[cfg.ssd_chunk], plain[cfg.ssd_chunk // 2]
-            got = {"logits": logits[:, :vocab], **cache["b0"]}
-            rel = {k: rel_err(got[k], ref[k]) for k in got}
-            floor = {k: rel_err(other[k], ref[k]) for k in got}
-            layer0 = {k: rel_err(got[k][0], ref[k][0]) for k in ("conv", "ssd")}
-            for what, e in layer0.items():
-                if not np.isfinite(e) or e > LOGIT_RTOL[dtype]:
-                    raise AssertionError(
-                        f"ssm prefill layer 0 {what} (S={s}): kernel vs "
-                        f"plain {e} of max |value| > {LOGIT_RTOL[dtype]}")
-            for what, e in rel.items():
-                lim = max(LOGIT_RTOL[dtype], SSM_ORDER_FACTOR * floor[what])
-                if not np.isfinite(e) or e > lim:
-                    raise AssertionError(
-                        f"ssm prefill {what} (S={s}): kernel vs plain {e} of "
-                        f"max |value| > {lim} (plain vs plain {floor[what]})")
-            r.update(rel=rel, rel_layer0=layer0, rel_plain_half_chunk=floor)
-            order_floor = floor["logits"]
-            del plain, ref, other
+        plain = {}
+        for chunk in (cfg.ssd_chunk, cfg.ssd_chunk // 2):
+            t0 = time.perf_counter()
+            pl, pc = T.prefill(
+                dataclasses.replace(cfg, attn_impl="ref", ssd_chunk=chunk),
+                model.params, batch, PREFILL_MAX_LEN, periods=model.periods())
+            torch.cuda.synchronize()
+            r.setdefault("plain_prefill_ms", (time.perf_counter() - t0) * 1e3)
+            plain[chunk] = {"logits": pl[:, :vocab], **pc["b0"]}
+        ref, other = plain[cfg.ssd_chunk], plain[cfg.ssd_chunk // 2]
+        got = {"logits": logits[:, :vocab], **cache["b0"]}
+        gated = list(got) if dtype == "float32" else ["logits"]
+        rel = {k: rel_err(got[k], ref[k]) for k in gated}
+        floor = {k: rel_err(other[k], ref[k]) for k in gated}
+        layer0 = {k: rel_err(got[k][0], ref[k][0]) for k in ("conv", "ssd")}
+        for what, e in layer0.items():
+            if not np.isfinite(e) or e > LOGIT_RTOL[dtype]:
+                raise AssertionError(
+                    f"ssm prefill layer 0 {what} (S={s}, {dtype}): kernel vs "
+                    f"plain {e} of max |value| > {LOGIT_RTOL[dtype]}")
+        for what, e in rel.items():
+            lim = max(LOGIT_RTOL[dtype], SSM_ORDER_FACTOR * floor[what])
+            if not np.isfinite(e) or e > lim:
+                raise AssertionError(
+                    f"ssm prefill {what} (S={s}, {dtype}): kernel vs plain "
+                    f"{e} of max |value| > {lim} (plain vs plain "
+                    f"{floor[what]})")
+        r.update(rel=rel, rel_layer0=layer0, rel_plain_half_chunk=floor)
+        order_floor = floor["logits"]
+        if dtype == "bfloat16" and s == PREFILL_MAX_LEN:
+            # layer 0's ssd cache (the same inputs on both paths) also
+            # within SSM_ORDER_FACTOR times the plain path's own half-chunk
+            # disagreement there; a path with bf16 operands alone must fail
+            # it.  Later layers' caches carry y's bf16 roundings from the
+            # layer before, as large on the plain path (information only):
+            # ssm_k5_real holds K5 at those layers instead.
+            r["k5_real"] = ssm_k5_real(model, batch)
+            only = ssm_bf16_only_cache(model, batch)
+            r["ssd_layers"] = {
+                name: [rel_err(c[i], ref["ssd"][i])
+                       for i in range(min(SSM_REAL_LAYERS, cfg.n_layers))]
+                for name, c in (("kernel", got["ssd"]),
+                                ("plain_half_chunk", other["ssd"]),
+                                ("bf16_only", only))}
+            del only
+            lay = r["ssd_layers"]
+            lim = SSM_ORDER_FACTOR * lay["plain_half_chunk"][0]
+            if not lay["kernel"][0] <= lim:
+                raise AssertionError(
+                    f"ssm prefill layer 0 ssd (bf16): kernel vs plain "
+                    f"{lay['kernel'][0]} of max |value| > {lim}")
+            if lay["bf16_only"][0] <= lim:
+                raise AssertionError(
+                    f"ssm prefill layer 0 ssd gate ({lim}) passes bf16 "
+                    f"operands alone ({lay['bf16_only'][0]})")
+        del plain, ref, other
+        if dtype == "bfloat16" and s == PREFILL_MAX_LEN:
+            r["profile"] = ssm_prefill_profile(model, batch)
+            r["profile_cuda_core"] = ssm_prefill_profile(model, batch,
+                                                         "cuda_core")
         res[f"s{s}"] = r
         logits511 = logits
         del cache

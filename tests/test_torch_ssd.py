@@ -8,7 +8,10 @@ and 3e-2 in bf16, the tolerances of tests/test_kernels.py:251; a tail
 length the reference cannot take (S = 60, chunk 16) matches the
 sequential ``ssd_scan`` within 1e-5 in f32; the decode step chains like the
 reference's.  The CUDA kernel itself runs only on the card (chip_smoke.py
-phase ssd); here its wrapper must refuse CPU tensors.
+phase ssd); here its wrapper must refuse CPU tensors, ``variant_for`` picks
+the tensor cores exactly where they apply, and a torch emulation of the
+tensor-core variant's rounding (its f32 operands split into bf16 hi + lo)
+holds phase ssd's bf16 tolerance, which bf16 operands alone do not.
 """
 import numpy as np
 import pytest
@@ -111,12 +114,89 @@ def test_decode_chain_matches_jax():
 
 
 def test_kernel_refuses_cpu_tensors():
-    """A CUDA kernel has no interpret mode: the wrapper and an explicit
-    ``use_kernel=True`` raise on CPU tensors, counting no launch."""
+    """A CUDA kernel has no interpret mode: the wrapper, with no variant
+    named or the tensor-core one, and an explicit ``use_kernel=True``
+    raise on CPU tensors, counting no launch."""
     _, targs = _both(_inputs(9, 1, 8, 2, 4, 4, 1), "float32")
     K5.reset_launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
         K5.ssd(*targs, chunk=8)
+    _, bargs = _both(_inputs(9, 1, 32, 2, 16, 16, 1), "bfloat16")
+    with pytest.raises(ValueError, match="CUDA"):
+        K5.ssd(*bargs, chunk=16, variant="tensor_core")
     with pytest.raises(ValueError, match="CUDA"):
         ops.ssd(*targs, chunk=8, use_kernel=True)
-    assert K5.LAUNCHES["ssd"] == 0
+    assert K5.LAUNCHES == {"ssd": 0, "ssd_tc": 0}
+
+
+def test_variant_for_takes_tensor_cores_at_prefill_widths():
+    """bf16 at mamba2-780m's widths (P 64, N 128, chunk 128) and at any
+    multiples of 16 up to them goes to the tensor cores; f32, the smoke
+    config's widths (P 32, N 16, chunk 8), a chunk of 100 and unaligned
+    pointers go to the CUDA cores."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert K5.variant_for(bf16, 64, 128, 128) == "tensor_core"
+    assert K5.variant_for(bf16, 64, 128, 64) == "tensor_core"
+    assert K5.variant_for(bf16, 16, 16, 16) == "tensor_core"
+    assert K5.variant_for(f32, 64, 128, 128) == "cuda_core"
+    assert K5.variant_for(bf16, 32, 16, 8) == "cuda_core"
+    assert K5.variant_for(bf16, 64, 128, 100) == "cuda_core"
+    assert K5.variant_for(bf16, 64, 128, 144) == "cuda_core"
+    assert K5.variant_for(bf16, 128, 128, 128) == "cuda_core"
+    assert K5.variant_for(bf16, 64, 128, 128, aligned=False) == "cuda_core"
+
+
+def _tc_emulation(x, dt, A, B, C, D, chunk, split):
+    """``ref.ssd_chunked``'s algebra (S a multiple of ``chunk``) with the
+    f32 operands of the tensor-core variant's products rounded as the
+    kernel rounds them: the decay-weighted C B^T tile, the incoming state
+    and x w (w_s = exp(L_end - L_s) dt_s), each as bf16 hi + lo
+    (``split``) or as bf16 alone; x, B and C are bf16 already."""
+    def rnd(t):
+        hi = t.bfloat16().float()
+        return hi + (t - hi).bfloat16().float() if split else hi
+    bt, s, h, p = x.shape
+    n, nc = B.shape[-1], s // chunk
+    xc = x.float().reshape(bt, nc, chunk, h, p)
+    bc = ref._expand_groups(B, h).float().reshape(bt, nc, chunk, h, n)
+    cc = ref._expand_groups(C, h).float().reshape(bt, nc, chunk, h, n)
+    dtc = dt.reshape(bt, nc, chunk, h)
+    L = torch.cumsum(dtc * A, dim=2)
+    mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))[
+        None, None, :, :, None]
+    diff = torch.where(mask, L[:, :, :, None] - L[:, :, None], 0.0)
+    cb = torch.einsum("bcthn,bcshn->bctsh", cc, bc)
+    tile = torch.where(mask, cb * torch.exp(diff) * dtc[:, :, None], 0.0)
+    y = torch.einsum("bctsh,bcshp->bcthp", rnd(tile), xc)
+    state = torch.zeros(bt, h, n, p)
+    for c in range(nc):
+        y[:, c] += torch.exp(L[:, c])[..., None] * torch.einsum(
+            "bthn,bhnp->bthp", cc[:, c], rnd(state))
+        w = torch.exp(L[:, c, -1:] - L[:, c]) * dtc[:, c]
+        upd = torch.einsum("bthn,bthp->bhnp", bc[:, c],
+                           rnd(xc[:, c] * w[..., None]))
+        state = state * torch.exp(L[:, c, -1])[..., None, None] + upd
+    y = y.reshape(bt, s, h, p) + x.float() * D[None, None, :, None]
+    return y.to(x.dtype), state
+
+
+def test_split_operands_hold_bf16_tolerance():
+    """Why the tensor-core variant splits its three f32 operands into bf16
+    hi + lo: so emulated, y and the final state stay within phase ssd's
+    bf16 tolerance of ``ref.ssd_chunked`` (y 2^-7 |y| + 1e-4, state 1e-3),
+    while bf16 operands alone put some y outside it (chip_smoke.py's
+    SSD_TOL and its input distributions, 2 chunks of 128)."""
+    a = _inputs(61, 1, 256, 4, 64, 128, 1)
+    _, targs = _both(a, "bfloat16")
+    want_y, want_state = ref.ssd_chunked(*targs, chunk=128)
+    want_y = want_y.float()
+    fails = {}
+    for split in (True, False):
+        y, state = _tc_emulation(*targs, 128, split)
+        tol_y = 1e-4 + 2.0 ** -7 * want_y.abs()
+        tol_s = 1e-3 + 1e-3 * want_state.abs()
+        fails[split] = ((y.float() - want_y).abs() > tol_y).float().mean()
+        if split:
+            assert bool(((state - want_state).abs() <= tol_s).all())
+    assert fails[True] == 0.0
+    assert fails[False] > 0.01
