@@ -14,10 +14,11 @@ slots of 128 f32, 8 GiB): EMem reads and writes through the slot gather
 Each phase prints one JSON line with its seconds:
 
 1. build      -- nvcc builds the five kernel libraries from the checkout's
-                 sources, all at once: paged decode (K1 paged_kv_write, K2
-                 paged_gather_attend), K3 flash_attention, K4 flash_decode,
-                 K5 ssd, and the gathers (K6 gather_pages, K7
-                 gather_slots);
+                 sources, all at once: paged decode (K1, whose entries are
+                 paged_qkv_write, the decode path's, and paged_kv_write,
+                 the TPU kernel's function; K2 paged_gather_attend), K3
+                 flash_attention, K4 flash_decode, K5 ssd, and the gathers
+                 (K6 gather_pages, K7 gather_slots);
 2. kernels    -- K1 and K2 each against its plain PyTorch version (the
                  composed oracle, ``kernels/paged_decode/ref.py``) at the
                  main path's shapes (f32 and bf16, 1 and 2 emulated shards,
@@ -27,13 +28,23 @@ Each phase prints one JSON line with its seconds:
                  starts inside a split, on 2 shards a row that one shard
                  owns none of and a split that holds only the other
                  shard's frames), with two K2 launches bit for bit and its
-                 counters back at zero; kernel / plain / library times and
-                 the least time the card could take (bound);
+                 counters back at zero; K1's decode entry, which also does
+                 the q/k RMS norm and rotary, against ``ref.qkv_write`` at
+                 the main path's shapes (f32 and bf16, 1 and 2 shards,
+                 qk_norm on and off, a masked, an empty, an unmapped and a
+                 read-only row) and at the other head dims: q and K rows
+                 within QKV_RTOL (bit for bit without qk_norm), V rows,
+                 drops and untouched slots bit for bit, two launches bit
+                 for bit, and with its write off
+                 against ``ref.qk_rotate``; times of both kernels, K1's old
+                 entry, the plain composites and the least time the card
+                 could take (bound);
 3. teacher    -- 64 teacher-forced full-width decode steps with the kernels
                  and with the composed oracle, same weights and tokens:
                  logits agree within the stated tolerance (f32 and bf16);
-   profile    -- where a full-width bf16 decode step's time goes: wall ms
-                 per step, and device ms per step by kernel (torch.profiler);
+   profile    -- where a full-width bf16 decode step's time goes (pooled
+                 and batch layouts): wall ms per step, device ms per step
+                 by kernel and device ops per step (torch.profiler);
 4. serve      -- the full-width engine + scheduler serve a seeded trace in
                  bf16; every request completes, shutdown is leak-free, a
                  swap preemption and prefix sharing happen, and every decode
@@ -60,7 +71,8 @@ Each phase prints one JSON line with its seconds:
                  reproduces prefill(511)'s logits;
 8. batch      -- the full-width engine + scheduler serve the phase-4 trace
                  on the batch KV layout with attn_impl "pallas": in bf16
-                 every decode step of every layer launched K4; in f32 the
+                 every decode step of every layer launched K4 and K1 with
+                 its page write off (the q/k norm and rotary); in f32 the
                  per-uid tokens equal the plain path's;
 9. ssd        -- K5 against its plain version (``ref.ssd_chunked``) at the
                  prefill's shape (Bt 8, S 512, H 48, P 64, N 128, G 1,
@@ -146,6 +158,15 @@ B, HKV, G, D, PS, MAX_LP = 8, 8, 2, 128, 16, 32
 # inputs, summing in another order): pages byte-equal; acc and l within
 # rtol 1e-5 + atol 1e-5; m (a max of q.k products) within atol 1e-5
 K2_RTOL, K2_ATOL, M_ATOL = 1e-5, 1e-5, 1e-5
+# K1's decode entry (paged_qkv_write) at qwen3-0.6b's rotary base and norm
+# eps; against its plain version (ref.qkv_write, the same f32 arithmetic
+# with the norm's sum of squares in another order): with qk_norm, q and the
+# written K rows within rtol/atol 1e-5 in f32 and one bf16 rounding step
+# (2^-7 |x|) in bf16; without it, where the two share every rounding point,
+# bit for bit; V rows, dropped writes and untouched slots bit for bit
+QKV_THETA, QKV_EPS = 1e6, 1e-6
+QKV_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+QKV_ATOL = {"float32": 1e-5, "bfloat16": 0.0}
 # teacher-forced logits, kernels against composed, relative to max |logit|
 # over the run: f32 1e-3, which with phase 2 carries correctness; bf16
 # 5e-2, a smoke check of the bf16 path only (one bf16 rounding of an
@@ -371,27 +392,44 @@ def parity_tables(rng, max_lp, ps, lengths):
     return bt, fl, np.zeros((n_frames,), bool)
 
 
-def k1_bytes(x, n_shards, sid):
-    """Bytes K1 moves on these inputs: each row's length and write-mask
-    flag; for a row that passes those, its block-table word and, for a
-    mapped frame, that frame's read-only flag; for a row it writes, the new
-    K and V rows read and written."""
-    es_in, es_kv = x["k_new"].element_size(), x["kp"].element_size()
-    row = HKV * D
+def k1_writers(x, n_shards, sid, bt=None):
+    """(rows whose K/V row K1 writes on shard ``sid``, bytes of the table
+    words K1 reads on these inputs: each row's length and write-mask flag;
+    for a row that passes those, its block-table word and, for a mapped
+    frame, that frame's read-only flag)."""
+    bt = x["bt_np"] if bt is None else bt
+    ps, max_lp = x["kp"].shape[1], bt.shape[1]
     n_frames = len(x["fr_np"])
-    nbytes = B * (4 + 1)
+    rows, nbytes = [], B * (4 + 1)
     for b in range(B):
         ln = int(x["lengths_np"][b])
-        if not x["wm_np"][b] or ln <= 0 or (ln - 1) // PS >= MAX_LP:
+        if not x["wm_np"][b] or ln <= 0 or (ln - 1) // ps >= max_lp:
             continue
         nbytes += 4
-        f = int(x["bt_np"][b, (ln - 1) // PS])
+        f = int(bt[b, (ln - 1) // ps])
         if not 0 <= f < n_frames:
             continue
         nbytes += 1
         if not x["fr_np"][f] and f % n_shards == sid:
-            nbytes += 2 * row * (es_in + es_kv)
-    return nbytes
+            rows.append(b)
+    return rows, nbytes
+
+
+def k1_qkv_work(x, c):
+    """(bytes, f32 operations) of K1's decode entry on one shard: q and the
+    norm weights read once, q written once, the table words, and for the
+    rows it writes their k and v read once and their K/V rows written; per
+    element 4 operations for the norm (square, sum, scale, weight) and 3
+    for the rotary, per rotary pair a power, a cosine and a sine, over q
+    and the written rows' k."""
+    es, es_kv = c["q"].element_size(), x["kp"].element_size()
+    d = c["q"].shape[2]
+    hq, hkv = c["q"].shape[1], c["k"].shape[1]
+    rows, nbytes = k1_writers(x, 1, 0, c["bt_np"])
+    nbytes += (B * 2 * hq * d * es + len(rows) * 2 * hkv * d * (es + es_kv)
+               + 2 * d * es)
+    ops = (B * hq + len(rows) * hkv) * (7 * d + 3 * d // 2)
+    return nbytes, ops
 
 
 def k2_work(x, n_shards, sid, window):
@@ -418,11 +456,14 @@ def k2_work(x, n_shards, sid, window):
 
 
 def check_shard(x, sid, n_shards, window, use_vm, err, what):
-    """Both kernels (``ops.paged_decode_shard``'s fused impl) against their
-    plain versions (its composed impl) on one emulated shard: pages
-    byte-equal, (acc, m, l) within the stated tolerance.  Raises on a
+    """Both kernels (``ops.paged_decode_shard``'s fused impl: K1's decode
+    entry with the norm and rotary off, then K2) against their plain
+    versions (its composed impl) on one emulated shard, and K1's
+    ``paged_kv_write`` entry alone: pages byte-equal, (acc, m, l) within the
+    stated tolerance.  Raises on a
     mismatch, folds max errors into ``err``; returns the fused outputs."""
     import torch
+    from repro_torch.kernels.paged_decode import kernel as K
     from repro_torch.kernels.paged_decode import ops
     kp = x["kp"][sid::n_shards].contiguous()
     vp = x["vp"][sid::n_shards].contiguous()
@@ -436,6 +477,15 @@ def check_shard(x, sid, n_shards, window, use_vm, err, what):
     f, c = outs["fused"], outs["composed"]
     if not (torch.equal(f[3], c[3]) and torch.equal(f[4], c[4])):
         raise AssertionError(f"K1 pages differ from plain: {what} sid={sid}")
+    # K1's TPU-function entry alone (the fused impl runs its decode entry)
+    bt, fr = ((x["bt"], x["fr"]) if use_vm else
+              ops._identity_tables(B, x["max_pages"], kp.device))
+    old = K.paged_kv_write(x["k_new"], x["v_new"], kp.clone(), vp.clone(), bt,
+                           x["lengths"], fr, x["wm"], (sid, n_shards, 0))
+    torch.cuda.synchronize()
+    if not (torch.equal(old[0], c[3]) and torch.equal(old[1], c[4])):
+        raise AssertionError(f"K1 paged_kv_write differs from plain: {what} "
+                             f"sid={sid}")
     for name, a, r in zip("acc m l".split(), f[:3], c[:3]):
         dlt = (a - r).abs()
         e = dlt.max().item()
@@ -503,6 +553,107 @@ K2_EDGE_LENGTHS = [K2_SPLIT - 1, 0, 1, 511, 512, K2_SPLIT, K2_SPLIT + 1,
 K2_EDGE_PAGES = ((PS, MAX_LP), (256, 2))
 
 
+def bits(t):
+    """A tensor's raw bits, for bit-for-bit comparisons."""
+    import torch
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def qkv_case(x, norm: bool, g=G, seed=31):
+    """Raw q/k/v projections for K1's decode entry, beside ``x``'s tables
+    and lengths (row 1 empty, row 2 on the read-only frame, row 5 masked),
+    with row 6's current page unmapped; random norm weights, or none."""
+    import torch
+    rng = np.random.default_rng(seed)
+    dev, dtype = x["kp"].device, x["kp"].dtype
+    d, ps = x["kp"].shape[3], x["kp"].shape[1]
+
+    def t(shape, scale=1.0):
+        a = rng.normal(size=shape).astype(np.float32) * scale
+        return torch.tensor(a, device=dev).to(dtype)
+    bt = x["bt_np"].copy()
+    bt[6, max(int(x["lengths_np"][6]) - 1, 0) // ps] = -1
+    return dict(q=t((B, HKV * g, d), 3.0), k=t((B, HKV, d), 3.0),
+                v=t((B, HKV, d)), bt=torch.tensor(bt, device=dev), bt_np=bt,
+                args=dict(q_norm=t((d,)) if norm else None,
+                          k_norm=t((d,)) if norm else None, eps=QKV_EPS,
+                          rope_theta=QKV_THETA))
+
+
+def qkv_close(got, want, exact, err, what):
+    """``got`` equal to ``want`` bit for bit where ``exact`` (no qk_norm),
+    else within QKV_RTOL / QKV_ATOL; folds the max error into ``err["k1"]``
+    and the share of elements that differ at all into
+    ``err["k1_bits_differ"]``, keyed by dtype and qk_norm."""
+    dt = str(want.dtype).split(".")[1]
+    a, r = got.float(), want.float()
+    dlt = (a - r).abs()
+    e = dlt.max().item() if dlt.numel() else 0.0
+    differ = (bits(got) != bits(want)).float().mean().item() \
+        if dlt.numel() else 0.0
+    key = f"{dt} qk_norm={not exact}"
+    err["k1"] = max(err["k1"], e)
+    err["k1_bits_differ"][key] = max(err["k1_bits_differ"].get(key, 0.0),
+                                     differ)
+    if exact and differ:
+        raise AssertionError(f"K1 {what} differs from plain in {differ:.3g} "
+                             f"of its elements (max {e}), not bit for bit")
+    if not bool((dlt <= QKV_ATOL[dt] + QKV_RTOL[dt] * r.abs()).all()):
+        raise AssertionError(f"K1 {what} differs from plain by {e}")
+
+
+def check_qkv(x, c, n_shards, err, what):
+    """K1's decode entry (``paged_qkv_write``) against ``ref.qkv_write`` on
+    every emulated shard: q and the written K rows within QKV_RTOL (bit for
+    bit without qk_norm), V rows,
+    the dropped writes and every untouched slot bit for bit, exactly the
+    rows K1's drop rules leave writing; two launches give the same bits;
+    then the same launch with the write off (``qk_rotate``, the batch
+    layout's) against ``ref.qk_rotate``."""
+    import torch
+    from repro_torch.kernels.paged_decode import kernel as K
+    from repro_torch.kernels.paged_decode import ref
+    what = f"{x['kp'].dtype} D={c['q'].shape[2]} {what}"
+    exact = c["args"]["q_norm"] is None
+    for sid in range(n_shards):
+        kp = x["kp"][sid::n_shards].contiguous()
+        vp = x["vp"][sid::n_shards].contiguous()
+        outs = []
+        for run in ("kernel", "kernel", "plain"):
+            kpc, vpc = kp.clone(), vp.clone()
+            if run == "plain":
+                q = ref.qkv_write(c["q"], c["k"], c["v"], kpc, vpc,
+                                  x["lengths"], c["bt"], x["fr"], x["wm"],
+                                  sid=sid, n_shards=n_shards,
+                                  max_pages=x["max_pages"], **c["args"])
+            else:
+                q = K.paged_qkv_write(c["q"], c["k"], c["v"], kpc, vpc,
+                                      c["bt"], x["lengths"], x["fr"], x["wm"],
+                                      (sid, n_shards, 0), **c["args"])
+            outs.append((q, kpc, vpc))
+        torch.cuda.synchronize()
+        where = f"{what} shard {sid} of {n_shards}"
+        if not all(torch.equal(bits(a), bits(b))
+                   for a, b in zip(outs[0], outs[1])):
+            raise AssertionError(f"K1: two launches differ: {where}")
+        (kq, kk, kv), (pq, pk, pv) = outs[0], outs[2]
+        if not torch.equal(bits(kv), bits(pv)):
+            raise AssertionError(f"K1 V rows differ from plain: {where}")
+        hit = (bits(pv) != bits(vp)).flatten(2).any(-1)    # written slots
+        rows, _ = k1_writers(x, n_shards, sid, c["bt_np"])
+        if int(hit.sum()) != len(rows):
+            raise AssertionError(f"K1: {int(hit.sum())} slots written, "
+                                 f"{len(rows)} expected: {where}")
+        if not torch.equal(bits(kk[~hit]), bits(pk[~hit])):
+            raise AssertionError(f"K1 touched a slot it must not: {where}")
+        qkv_close(kq, pq, exact, err, "q: " + where)
+        qkv_close(kk[hit], pk[hit], exact, err, "written K rows: " + where)
+    kq, kk = K.qk_rotate(c["q"], c["k"], x["lengths"], **c["args"])
+    pq, pk = ref.qk_rotate(c["q"], c["k"], x["lengths"], **c["args"])
+    qkv_close(kq, pq, exact, err, "qk_rotate q: " + what)
+    qkv_close(kk, pk, exact, err, "qk_rotate k: " + what)
+
+
 def check_identity_tables(dev, err):
     """Without VM tables (the fixed layout: sequence b owns frames
     b*max_pages..) the fused path synthesizes identity tables; it must agree
@@ -519,7 +670,7 @@ def phase_kernels(dev):
     from repro_torch.kernels import build
     if build.SPLIT != K2_SPLIT:
         raise AssertionError(f"K2's split is {build.SPLIT}, not {K2_SPLIT}")
-    err = {"k1": 0.0, "k2": 0.0}
+    err = {"k1": 0.0, "k1_bits_differ": {}, "k2": 0.0}
     timing = {}
     for dtype in (torch.float32, torch.bfloat16):
         for n_shards in (1, 2):
@@ -528,10 +679,15 @@ def phase_kernels(dev):
                 check_case(x, n_shards, window, err)
                 if dtype == torch.bfloat16 and n_shards == 1 and window is None:
                     timing = time_kernels(x)
+            # K1's decode entry, qk_norm on and off
+            for norm in (True, False):
+                check_qkv(x, qkv_case(x, norm), n_shards, err,
+                          f"qk_norm={norm}")
         for g, d, ps, max_lp in OTHER_SHAPES:
             x = kernel_case(23, dtype, dev, g=g, d=d, ps=ps, max_lp=max_lp)
             for window in (None, 5):
                 check_case(x, 1, window, err)
+            check_qkv(x, qkv_case(x, True, g=g), 1, err, f"G={g}")
         # K2's split edges; on two shards row 3 lies wholly on shard 0
         for ps, max_lp in K2_EDGE_PAGES:
             x = kernel_case(27, dtype, dev, ps=ps, max_lp=max_lp,
@@ -547,8 +703,11 @@ def phase_kernels(dev):
 
 def time_kernels(x):
     """Kernel, plain and library times at the main path's shapes (bf16, one
-    shard, no window).  K2 cycles over 8 copies of the page pool (8 x 17 MB,
-    past the 50 MB L2), since the serving path finds each layer's pages cold."""
+    shard, no window): K1's decode entry beside its plain version, the ops
+    it replaces on the decode path (the plain norm and rotary, then the old
+    entry), the same launch with its write off and the old entry alone.  K2
+    cycles over 8 copies of the page pool (8 x 17 MB, past the 50 MB L2),
+    since the serving path finds each layer's pages cold."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels.paged_decode import kernel as K
@@ -557,26 +716,27 @@ def time_kernels(x):
     shard = dict(sid=0, n_shards=1, max_pages=MAX_LP)
     kp, vp = x["kp"].clone(), x["vp"].clone()
     out = {}
-    out["k1"] = timed(lambda: K.paged_kv_write(
+    c = qkv_case(x, True)
+    out["k1"] = timed(lambda: K.paged_qkv_write(
+        c["q"], c["k"], c["v"], kp, vp, c["bt"], x["lengths"], x["fr"],
+        x["wm"], meta, **c["args"]))
+    # the plain composite it replaces (rms_norm and rope of q and k, then
+    # write_kv, whose masked indexing syncs the host)
+    out["k1_plain"] = timed(lambda: ref.qkv_write(
+        c["q"], c["k"], c["v"], kp, vp, x["lengths"], c["bt"], x["fr"],
+        x["wm"], **shard, **c["args"]))
+
+    def replaced():
+        # the parent's decode path: the plain norm and rotary, then old K1
+        q, k = ref.qk_rotate(c["q"], c["k"], x["lengths"], **c["args"])
+        K.paged_kv_write(k, c["v"], kp, vp, c["bt"], x["lengths"], x["fr"],
+                         x["wm"], meta)
+    out["k1_replaced"] = timed(replaced)
+    out["k1_write_off"] = timed(lambda: K.qk_rotate(
+        c["q"], c["k"], x["lengths"], **c["args"]))
+    out["k1_old"] = timed(lambda: K.paged_kv_write(
         x["k_new"], x["v_new"], kp, vp, x["bt"], x["lengths"], x["fr"],
         x["wm"], meta))
-    out["k1_plain"] = timed(lambda: ref.write_kv(
-        x["k_new"], x["v_new"], kp, vp, x["lengths"], x["bt"], x["fr"],
-        x["wm"], **shard))
-    # library: index_put_ of the precomputed (row, slot) targets, K and V
-    ln = x["lengths_np"]
-    sel = [b for b in range(B) if x["wm_np"][b] and ln[b] > 0
-           and not x["fr_np"][x["bt_np"][b, (ln[b] - 1) // PS]]]
-    rows = torch.tensor([int(x["bt_np"][b, (ln[b] - 1) // PS]) for b in sel],
-                        device=kp.device)
-    offs = torch.tensor([int((ln[b] - 1) % PS) for b in sel], device=kp.device)
-    bsel = torch.tensor(sel, device=kp.device)
-    k_rows, v_rows = x["k_new"][bsel], x["v_new"][bsel]
-
-    def library():
-        kp.index_put_((rows, offs), k_rows)
-        vp.index_put_((rows, offs), v_rows)
-    out["k1_library"] = timed(library)
     pools = [(x["kp"].clone(), x["vp"].clone()) for _ in range(8)]
     it = itertools.count()
     qg = x["q"].reshape(B, HKV, G, D)
@@ -592,13 +752,17 @@ def time_kernels(x):
     out["k2"] = timed(k2)
     out["k2_plain"] = timed(k2_plain, iters=20)
     out["k2_blocks"] = B * HKV * build.n_splits(MAX_LP * PS)
-    b1 = k1_bytes(x, 1, 0)
+    b1, ops1 = k1_qkv_work(x, c)
     b2, ops2 = k2_work(x, 1, 0, None)
-    out["k1_bound_ms"] = b1 / HBM_BYTES_PER_S * 1e3
+    out["k1_bound_ms"] = max(b1 / HBM_BYTES_PER_S, ops1 / F32_FLOPS_PER_S) * 1e3
+    out["k1_bound_by"] = ("bytes" if b1 / HBM_BYTES_PER_S
+                          >= ops1 / F32_FLOPS_PER_S else "operations")
     out["k2_bound_ms"] = max(b2 / HBM_BYTES_PER_S, ops2 / F32_FLOPS_PER_S) * 1e3
     out["k2_bound_by"] = ("bytes" if b2 / HBM_BYTES_PER_S
                           >= ops2 / F32_FLOPS_PER_S else "operations")
-    out["k1_bytes"], out["k2_bytes"], out["k2_ops"] = b1, b2, ops2
+    out["k1_bytes"], out["k1_ops"] = b1, ops1
+    out["k1_rows_written"] = len(k1_writers(x, 1, 0, c["bt_np"])[0])
+    out["k2_bytes"], out["k2_ops"] = b2, ops2
     return out
 
 
@@ -770,7 +934,7 @@ def phase_tokens(dev):
 
 
 #: each wrapper's CUDA kernel, by the symbol the profiler reports
-KERNEL_SYMBOLS = {"paged_kv_write": ("kv_write_kernel",),
+KERNEL_SYMBOLS = {"paged_kv_write": ("qkv_write_kernel",),
                   "paged_gather_attend": ("gather_attend_kernel",),
                   "flash_attention": ("fa_kernel", "fa_tc_kernel"),
                   "flash_decode": ("flash_decode_kernel",),
@@ -1201,9 +1365,10 @@ def phase_prefill(dev, dtype: str):
 
 def phase_batch(dev):
     """The phase-4 trace on the batch KV layout: bf16 with the kernels (every
-    decode step of every layer launches K4, and no paged kernel runs), then
-    f32 with the kernels and with the plain path (attn_impl "ref"), whose
-    per-uid tokens and telemetry must be identical."""
+    decode step of every layer launches K1 with its page write off, for the
+    q/k norm and rotary, and K4; K2 and K3 never run), then f32 with the
+    kernels and with the plain path (attn_impl "ref"), whose per-uid tokens
+    and telemetry must be identical."""
     from repro_torch.kernels.flash_attention import kernel as K3
     from repro_torch.kernels.paged_decode import flash as K4
     from repro_torch.kernels.paged_decode import kernel as K
@@ -1212,11 +1377,14 @@ def phase_batch(dev):
         mod.reset_launch_counts()
     outputs, stats, dt = serve(dev, "bfloat16", attn_impl="pallas", **batch)
     launches = K4.LAUNCHES["flash_decode"]
-    others = {**K.LAUNCHES, **K3.LAUNCHES}
+    k1 = K.LAUNCHES["paged_kv_write"]
+    others = {"paged_gather_attend": K.LAUNCHES["paged_gather_attend"],
+              **K3.LAUNCHES}
     n_layers = full_cfg("bfloat16").n_layers
-    if launches == 0 or launches != n_layers * stats["decode_steps"]:
-        raise AssertionError(f"flash_decode: {launches} launches for "
-                             f"{stats['decode_steps']} decode steps")
+    for name, n in (("flash_decode", launches), ("paged_kv_write", k1)):
+        if n == 0 or n != n_layers * stats["decode_steps"]:
+            raise AssertionError(f"{name}: {n} launches for "
+                                 f"{stats['decode_steps']} decode steps")
     if any(others.values()):
         raise AssertionError(f"batch serving launched other kernels: {others}")
     kern, st_k, dt_k = serve(dev, "float32", attn_impl="pallas", **batch)
@@ -1232,6 +1400,7 @@ def phase_batch(dev):
         "completed": len(outputs), "new_tokens": new_tokens,
         "decode_steps": stats["decode_steps"],
         "dispatches": stats["dispatches"], "flash_decode_launches": launches,
+        "paged_kv_write_launches": k1,
         "wall_s": dt, "tokens_per_s": new_tokens / dt,
         "decode_step_ms": dt / stats["decode_steps"] * 1e3,
         "f32_tokens_identical": len(kern), "f32_kernels_s": dt_k,

@@ -11,6 +11,13 @@ translation rides the memory access instead of a host-side owner mask:
     owns the frame (``f % n_shards == sid``, local row ``f // n_shards``).
     Masked, length-0, unmapped and read-only (``frame_ro``) writes drop.
     Pages are updated IN PLACE.
+``paged_qkv_write`` (K1, the decode path's entry)
+    the same launch taking q, k and v straight from the projections: the
+    per-head RMS norm of q and k (``qk_norm``) and their rotary embedding
+    at position ``len - 1``, then K1's write of the rotated k and of v;
+    returns the normed, rotated q for K2.  :func:`qk_rotate` is the same
+    launch with the page write off (the batch layout's q/k epilogue).
+    Both count as K1 launches.
 ``paged_gather_attend`` (K2)
     for each (sequence, local KV head) walks the block-table row over the
     pages this shard owns, attends the G grouped query heads to positions
@@ -32,8 +39,9 @@ with ``nvcc`` at first use, :mod:`repro_torch.kernels.build`) and adds one
 to ``LAUNCHES[name]``; any failure raises, and so do CPU tensors: a CUDA
 kernel has no interpret mode.  The
 plain versions the kernels are held against are
-:func:`repro_torch.kernels.paged_decode.ref.write_kv` and
-:func:`~repro_torch.kernels.paged_decode.ref.attend_shard`.
+:func:`repro_torch.kernels.paged_decode.ref.write_kv`,
+:func:`~repro_torch.kernels.paged_decode.ref.qkv_write` (and its
+``qk_rotate``) and :func:`~repro_torch.kernels.paged_decode.ref.attend_shard`.
 """
 from __future__ import annotations
 
@@ -63,8 +71,10 @@ def build() -> tuple[Path, str]:
 def _bind(lib) -> None:
     import ctypes
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.paged_kv_write.argtypes = [p] * 8 + [i] * 10 + [p]
+    lib.paged_kv_write.argtypes = [p] * 8 + [i] * 11 + [p]
     lib.paged_kv_write.restype = i
+    lib.paged_qkv_write.argtypes = [p] * 13 + [i] * 10 + [f, f] + [i] * 3 + [p]
+    lib.paged_qkv_write.restype = i
     lib.paged_gather_attend.argtypes = ([p] * 10 + [i] * 12 + [f]
                                         + [i] * 2 + [p])
     lib.paged_gather_attend.restype = i
@@ -93,20 +103,10 @@ def _meta(meta) -> tuple[int, int, int]:
     return sid, n_shards, kv_start
 
 
-# -- K1: WRITE ----------------------------------------------------------------------
+# -- K1: norm, rotary and WRITE ------------------------------------------------
 
-def paged_kv_write(k_new, v_new, k_pages, v_pages, block_table, lengths,
-                   frame_ro, write_mask, meta):
-    """K1.  k_new/v_new: [B, Hkv, D]; k/v_pages: [np_loc, slots, Hkv, D]
-    (this shard's pages, updated in place); block_table: int32
-    [B, max_lpages] GLOBAL frame ids; lengths: int32 [B] including the new
-    token; frame_ro: bool [n_frames]; write_mask: bool [B]; meta:
-    (sid, n_shards, kv_start).  Returns (k_pages, v_pages)."""
-    dev = _build.check_cuda(k_new=k_new, v_new=v_new, k_pages=k_pages,
-                      v_pages=v_pages, block_table=block_table,
-                      lengths=lengths, frame_ro=frame_ro,
-                      write_mask=write_mask)
-    sid, n_shards, _ = _meta(meta)
+def _check_write(k_new, v_new, k_pages, v_pages, block_table, lengths,
+                 frame_ro, write_mask):
     b, hkv, d = k_new.shape
     if v_new.shape != k_new.shape or v_new.dtype != k_new.dtype:
         raise ValueError("k_new and v_new must match in shape and dtype")
@@ -119,8 +119,35 @@ def paged_kv_write(k_new, v_new, k_pages, v_pages, block_table, lengths,
         raise ValueError("frame_ro must be bool [n_frames]")
     if write_mask.dtype != torch.bool or tuple(write_mask.shape) != (b,):
         raise ValueError(f"write_mask must be bool [{b}]")
+    return _build.dtype_code(k_pages, "k_pages")
+
+
+def _raise_on(err, name, d):
+    if err == _build.CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(f"{name} refused head_dim {d} (CUDA error {err}): the "
+                         "kernel takes 1..2048, even with the rotary "
+                         "(csrc/paged_decode.cu)")
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES["paged_kv_write"] += 1
+
+
+def paged_kv_write(k_new, v_new, k_pages, v_pages, block_table, lengths,
+                   frame_ro, write_mask, meta):
+    """K1 as the TPU kernel has it.  k_new/v_new: [B, Hkv, D]; k/v_pages:
+    [np_loc, slots, Hkv, D] (this shard's pages, updated in place);
+    block_table: int32 [B, max_lpages] GLOBAL frame ids; lengths: int32 [B]
+    including the new token; frame_ro: bool [n_frames]; write_mask: bool
+    [B]; meta: (sid, n_shards, kv_start).  Returns (k_pages, v_pages)."""
+    dev = _build.check_cuda(k_new=k_new, v_new=v_new, k_pages=k_pages,
+                      v_pages=v_pages, block_table=block_table,
+                      lengths=lengths, frame_ro=frame_ro,
+                      write_mask=write_mask)
+    sid, n_shards, _ = _meta(meta)
+    kv_code = _check_write(k_new, v_new, k_pages, v_pages, block_table,
+                           lengths, frame_ro, write_mask)
     in_code = _build.dtype_code(k_new, "k_new")
-    kv_code = _build.dtype_code(k_pages, "k_pages")
+    b, hkv, d = k_new.shape
     if b == 0:
         return k_pages, v_pages
     lib = _library()
@@ -128,14 +155,99 @@ def paged_kv_write(k_new, v_new, k_pages, v_pages, block_table, lengths,
         err = lib.paged_kv_write(
             k_new.data_ptr(), v_new.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), block_table.data_ptr(), lengths.data_ptr(),
-            frame_ro.data_ptr(), write_mask.data_ptr(), b,
+            frame_ro.data_ptr(), write_mask.data_ptr(), b, hkv, d,
             block_table.shape[1], k_pages.shape[1], k_pages.shape[0],
-            frame_ro.shape[0], hkv * d, sid, n_shards, in_code, kv_code,
+            frame_ro.shape[0], sid, n_shards, in_code, kv_code,
             _build.stream_of(dev))
-    if err:
-        raise RuntimeError(f"paged_kv_write launch failed: CUDA error {err}")
-    LAUNCHES["paged_kv_write"] += 1
+    _raise_on(err, "paged_kv_write", d)
     return k_pages, v_pages
+
+
+def _check_epilogue(q, k, lengths, q_norm, k_norm):
+    """q [B, Hq, D] and k [B, Hkv, D] of one dtype; the norm weights [D] in
+    it too, both or neither.  Returns the dtype code."""
+    if q.dim() != 3 or k.dim() != 3 or q.shape[0] != k.shape[0] \
+            or q.shape[2] != k.shape[2] or q.dtype != k.dtype:
+        raise ValueError(f"q [B, Hq, D] and k [B, Hkv, D] must match in B, D "
+                         f"and dtype, got {tuple(q.shape)} {q.dtype} / "
+                         f"{tuple(k.shape)} {k.dtype}")
+    if lengths.dtype != torch.int32 or tuple(lengths.shape) != (q.shape[0],):
+        raise ValueError(f"lengths must be int32 [{q.shape[0]}]")
+    if (q_norm is None) != (k_norm is None):
+        raise ValueError("q_norm and k_norm go together")
+    for name, w in (("q_norm", q_norm), ("k_norm", k_norm)):
+        if w is not None and (tuple(w.shape) != (q.shape[2],)
+                              or w.dtype != q.dtype):
+            raise ValueError(f"{name} must be [{q.shape[2]}] in {q.dtype}, got "
+                             f"{tuple(w.shape)} {w.dtype}")
+    return _build.dtype_code(q, "q")
+
+
+def _qkv_launch(q, k, v, q_out, k_out, pages, lengths, q_norm, k_norm, eps,
+                rope_theta, meta, in_code, kv_code, dev):
+    kp, vp, bt, fr, wm = pages if pages is not None else (None,) * 5
+    sid, n_shards, _ = _meta(meta)
+    b, hq, d = q.shape
+    if b == 0:
+        return
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.paged_qkv_write(
+            ptr(q), ptr(k), ptr(v), ptr(q_out), ptr(k_out), ptr(kp), ptr(vp),
+            ptr(q_norm), ptr(k_norm), ptr(bt), ptr(lengths), ptr(fr), ptr(wm),
+            b, hq, k.shape[1], d, 0 if bt is None else bt.shape[1],
+            0 if kp is None else kp.shape[1], 0 if kp is None else kp.shape[0],
+            0 if fr is None else fr.shape[0], sid, n_shards, float(eps),
+            0.0 if rope_theta is None else float(rope_theta),
+            int(rope_theta is not None), in_code, kv_code,
+            _build.stream_of(dev))
+    _raise_on(err, "paged_qkv_write", d)
+
+
+def paged_qkv_write(q, k, v, k_pages, v_pages, block_table, lengths,
+                    frame_ro, write_mask, meta, *, q_norm=None, k_norm=None,
+                    eps=1e-6, rope_theta=None):
+    """K1 on the decode path, one launch.  q: [B, Hq, D], k/v: [B, Hkv, D],
+    the raw projections (after any bias) in the compute dtype; q_norm /
+    k_norm: [D] RMS-norm weights in that dtype, or None (no ``qk_norm``);
+    rope_theta: the rotary base, or None (no rotary); the rest as
+    :func:`paged_kv_write`.  Norms and rotates q and k at position
+    ``lengths - 1``, writes the rotated k and v as K1 does, and returns the
+    normed, rotated q [B, Hq, D] in the compute dtype."""
+    dev = _build.check_cuda(
+        q=q, k=k, v=v, k_pages=k_pages, v_pages=v_pages,
+        block_table=block_table, lengths=lengths, frame_ro=frame_ro,
+        write_mask=write_mask,
+        **{n: w for n, w in (("q_norm", q_norm), ("k_norm", k_norm))
+           if w is not None})
+    in_code = _check_epilogue(q, k, lengths, q_norm, k_norm)
+    kv_code = _check_write(k, v, k_pages, v_pages, block_table, lengths,
+                           frame_ro, write_mask)
+    q_out = torch.empty_like(q)
+    _qkv_launch(q, k, v, q_out, None,
+                (k_pages, v_pages, block_table, frame_ro, write_mask),
+                lengths, q_norm, k_norm, eps, rope_theta, meta, in_code,
+                kv_code, dev)
+    return q_out
+
+
+def qk_rotate(q, k, lengths, *, q_norm=None, k_norm=None, eps=1e-6,
+              rope_theta=None):
+    """K1 with its page write off: the norm and rotary of
+    :func:`paged_qkv_write` alone.  Returns (q, k) normed and rotated,
+    [B, Hq, D] and [B, Hkv, D] in the compute dtype."""
+    dev = _build.check_cuda(
+        q=q, k=k, lengths=lengths,
+        **{n: w for n, w in (("q_norm", q_norm), ("k_norm", k_norm))
+           if w is not None})
+    in_code = _check_epilogue(q, k, lengths, q_norm, k_norm)
+    q_out, k_out = torch.empty_like(q), torch.empty_like(k)
+    _qkv_launch(q, k, None, q_out, k_out, None, lengths, q_norm, k_norm, eps,
+                rope_theta, (0, 1, 0), in_code, in_code, dev)
+    return q_out, k_out
 
 
 # -- K2: READ + attend ------------------------------------------------------------

@@ -11,8 +11,9 @@ so a caller's log-sum-exp merge is impl-independent:
                (:mod:`repro_torch.kernels.paged_decode.ref`) -- the oracle,
                and what ``auto`` runs on CPU tensors;
 ``fused``      the VM-walking CUDA kernels
-               (:mod:`repro_torch.kernels.paged_decode.kernel`); CUDA
-               tensors only, since a CUDA kernel has no interpret mode.
+               (:mod:`repro_torch.kernels.paged_decode.kernel`): K1
+               ``paged_qkv_write`` (with the q/k norm and rotary) then K2;
+               CUDA tensors only, since a CUDA kernel has no interpret mode.
 
 Without VM tables (``use_vm=False``) the fused path synthesizes the identity
 block table -- sequence ``b`` owns frames ``b*max_pages ..`` -- so the
@@ -56,22 +57,37 @@ def _identity_tables(b: int, max_pages: int, device):
     return bt, fr
 
 
+def qk_rotate(q, k, lengths, **epilogue):
+    """The decode step's q/k norm and rotary at position ``lengths - 1``
+    (``epilogue`` as ``L.qk_epilogue_args`` gives it) without a page write,
+    for the batch layout: K1 with its write off on CUDA tensors, its plain
+    version ``ref.qk_rotate`` on CPU ones.  q: [B, Hq, D], k: [B, Hkv, D]."""
+    rotate = _k.qk_rotate if q.device.type == "cuda" else _ref.qk_rotate
+    return rotate(q, k, lengths, **epilogue)
+
+
 def paged_decode_shard(q, k_new, v_new, k_pages, v_pages, lengths, bt, fl,
                        fr, wm, *, sid, n_shards, head_start, group, window,
-                       max_pages, use_vm, impl):
+                       max_pages, use_vm, impl, q_norm=None, k_norm=None,
+                       eps=1e-6, rope_theta=None):
     """One shard of the paged decode step.
 
     q: [B, Hl, hd] local query heads (whole KV-head groups);
     k_new/v_new: [B, Hkv, hd]; k/v_pages: [np_loc, slots, Hkv, hd] local,
     updated IN PLACE; bt/fl/fr: replicated VM tables (ignored when
-    ``use_vm`` is False); wm: [B] write mask.
+    ``use_vm`` is False); wm: [B] write mask.  q and k_new are the raw
+    projections when ``q_norm``/``k_norm`` (the ``qk_norm`` weights) or
+    ``rope_theta`` are given, which the step applies first: ``fused`` in K1
+    (``paged_qkv_write``), ``composed`` as ``ref.qkv_write``.
     Returns (acc [B, Hl, hd] f32 unnormalized, m [B, Hl], l [B, Hl],
     k_pages, v_pages)."""
+    epilogue = dict(q_norm=q_norm, k_norm=k_norm, eps=eps,
+                    rope_theta=rope_theta)
     if impl == "composed":
         return _ref.paged_decode_shard(
             q, k_new, v_new, k_pages, v_pages, lengths, bt, fl, fr, wm,
             sid=sid, n_shards=n_shards, head_start=head_start, group=group,
-            window=window, max_pages=max_pages, use_vm=use_vm)
+            window=window, max_pages=max_pages, use_vm=use_vm, **epilogue)
     if impl != "fused":
         raise ValueError(f"unknown impl {impl!r}")
     if q.device.type != "cuda":
@@ -82,8 +98,8 @@ def paged_decode_shard(q, k_new, v_new, k_pages, v_pages, lengths, bt, fl,
     else:
         bt_use, fr_use = _identity_tables(b, max_pages, q.device)
     meta = (sid, n_shards, head_start // group)
-    k_pages, v_pages = _k.paged_kv_write(
-        k_new, v_new, k_pages, v_pages, bt_use, lengths, fr_use, wm, meta)
+    q = _k.paged_qkv_write(q, k_new, v_new, k_pages, v_pages, bt_use, lengths,
+                           fr_use, wm, meta, **epilogue)
     qg = q.reshape(b, hl // group, group, hd)
     acc, m, l = _k.paged_gather_attend(qg, k_pages, v_pages, bt_use, lengths,
                                        meta, window=window)

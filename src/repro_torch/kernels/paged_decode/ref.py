@@ -6,8 +6,10 @@ host-style owner masks: :func:`write_target` (frame lookup + ``frame_ro``
 write drop), :func:`owner_mask` (frame-membership test per physical page)
 and a single-max softmax over every owned token.  This is the reference the
 CUDA kernels are held against -- :func:`write_kv` is ``paged_kv_write``'s
-plain version, :func:`attend_shard` ``paged_gather_attend``'s -- and the
-path the CPU runs.
+plain version, :func:`qkv_write` ``paged_qkv_write``'s (the per-head RMS
+norm and rotary of q and k, :func:`qk_rotate`, then :func:`write_kv`),
+:func:`attend_shard` ``paged_gather_attend``'s -- and the path the CPU
+runs.
 
 All functions are per-shard: they see the local page arrays plus the
 (replicated) VM tables and the shard's identity.  ``bt is None`` selects
@@ -19,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.emem_vm.layout import shard_frames
+from repro_torch.models import layers as L
 
 NEG_INF = -1e30
 
@@ -103,6 +106,30 @@ def write_kv(k_new, v_new, k_pages, v_pages, lengths, bt, fr, wm, *, sid,
     return k_pages, v_pages
 
 
+def qk_rotate(q, k, lengths, *, q_norm=None, k_norm=None, eps=1e-6,
+              rope_theta=None):
+    """The plain version of ``kernel.qk_rotate``: ``L.qk_epilogue`` (the
+    norm, then the rotary) of one decode token at position ``lengths - 1``.
+    q: [B, Hq, D], k: [B, Hkv, D].  Returns (q, k) of those shapes."""
+    q, k = L.qk_epilogue(q[:, :, None], k[:, :, None], (lengths - 1)[:, None],
+                         q_norm=q_norm, k_norm=k_norm, eps=eps,
+                         rope_theta=rope_theta)
+    return q[:, :, 0], k[:, :, 0]
+
+
+def qkv_write(q, k, v, k_pages, v_pages, lengths, bt, fr, wm, *, sid,
+              n_shards, max_pages, q_norm=None, k_norm=None, eps=1e-6,
+              rope_theta=None):
+    """The plain version of ``kernel.paged_qkv_write``: :func:`qk_rotate`
+    of the raw projections, then :func:`write_kv` of the rotated k and v.
+    Pages are updated IN PLACE.  Returns the normed, rotated q."""
+    q, k = qk_rotate(q, k, lengths, q_norm=q_norm, k_norm=k_norm, eps=eps,
+                     rope_theta=rope_theta)
+    write_kv(k, v, k_pages, v_pages, lengths, bt, fr, wm, sid=sid,
+             n_shards=n_shards, max_pages=max_pages)
+    return q
+
+
 def attend_shard(q, k_pages, v_pages, lengths, bt, fl, *, sid, n_shards,
                  head_start, group, window, max_pages):
     """READ half (the plain version of the ``paged_gather_attend`` kernel):
@@ -118,16 +145,19 @@ def attend_shard(q, k_pages, v_pages, lengths, bt, fl, *, sid, n_shards,
 
 def paged_decode_shard(q, k_new, v_new, k_pages, v_pages, lengths, bt, fl,
                        fr, wm, *, sid, n_shards, head_start, group, window,
-                       max_pages, use_vm):
-    """Composed per-shard decode step: masked WRITE scatter + partial
-    attention over owned pages.  ``k_pages``/``v_pages`` are updated IN
-    PLACE (the reference returns new arrays) and returned.  Returns
-    (acc, m, l, k_pages, v_pages) with ``acc`` unnormalized so the caller
-    can merge across shards."""
+                       max_pages, use_vm, q_norm=None, k_norm=None, eps=1e-6,
+                       rope_theta=None):
+    """Composed per-shard decode step: :func:`qkv_write` (the q/k epilogue
+    when norm weights or ``rope_theta`` are given, and the masked WRITE
+    scatter) + partial attention over owned pages.  ``k_pages``/``v_pages``
+    are updated IN PLACE (the reference returns new arrays) and returned.
+    Returns (acc, m, l, k_pages, v_pages) with ``acc`` unnormalized so the
+    caller can merge across shards."""
     bt_ = bt if use_vm else None
     fl_ = fl if use_vm else None
-    write_kv(k_new, v_new, k_pages, v_pages, lengths, bt_, fr, wm, sid=sid,
-             n_shards=n_shards, max_pages=max_pages)
+    q = qkv_write(q, k_new, v_new, k_pages, v_pages, lengths, bt_, fr, wm,
+                  sid=sid, n_shards=n_shards, max_pages=max_pages,
+                  q_norm=q_norm, k_norm=k_norm, eps=eps, rope_theta=rope_theta)
     acc, m, l = attend_shard(q, k_pages, v_pages, lengths, bt_, fl_, sid=sid,
                              n_shards=n_shards, head_start=head_start,
                              group=group, window=window, max_pages=max_pages)

@@ -109,25 +109,51 @@ def attention_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
-def project_qkv(cfg: ModelConfig, p, x: torch.Tensor,
-                positions: torch.Tensor, rotary: bool = True):
-    """x: [B, S, d] -> q [B, H, S, hd], k/v [B, Hkv, S, hd]."""
-    b, s, _ = x.shape
-    hd = cfg.hd
+def qkv_projections(cfg: ModelConfig, p, x: torch.Tensor):
+    """The projections of :func:`project_qkv`: x [B, S, d] -> q
+    [B, S, H * hd], k/v [B, S, Hkv * hd], bias added."""
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return q, k, v
+
+
+def qk_epilogue(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
+                *, q_norm=None, k_norm=None, eps: float = 1e-6,
+                rope_theta: float | None = None):
+    """The norm and rotary epilogue of :func:`project_qkv`: the RMS norm of
+    q and k when ``q_norm``/``k_norm`` are given, then the rotary at
+    ``positions`` unless ``rope_theta`` is None.  q [B, H, S, hd], k
+    [B, Hkv, S, hd]; positions [B, S]."""
+    if q_norm is not None:
+        q = rms_norm(q, q_norm, eps)
+        k = rms_norm(k, k_norm, eps)
+    if rope_theta is not None:
+        q = rope(q, positions[:, None, :], rope_theta)
+        k = rope(k, positions[:, None, :], rope_theta)
+    return q, k
+
+
+def qk_epilogue_args(cfg: ModelConfig, p, rotary: bool = True) -> dict:
+    """:func:`qk_epilogue`'s keyword arguments for ``cfg``: the ``qk_norm``
+    weights (None without it), eps and theta (None without the rotary)."""
+    return dict(q_norm=p["q_norm"] if cfg.qk_norm else None,
+                k_norm=p["k_norm"] if cfg.qk_norm else None,
+                eps=cfg.rms_eps, rope_theta=cfg.rope_theta if rotary else None)
+
+
+def project_qkv(cfg: ModelConfig, p, x: torch.Tensor,
+                positions: torch.Tensor, rotary: bool = True):
+    """x: [B, S, d] -> q [B, H, S, hd], k/v [B, Hkv, S, hd]."""
+    b, s, _ = x.shape
+    hd = cfg.hd
+    q, k, v = qkv_projections(cfg, p, x)
     q = q.reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
     k = k.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
     v = v.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.rms_eps)
-        k = rms_norm(k, p["k_norm"], cfg.rms_eps)
-    if rotary:
-        q = rope(q, positions[:, None, :], cfg.rope_theta)
-        k = rope(k, positions[:, None, :], cfg.rope_theta)
+    q, k = qk_epilogue(q, k, positions, **qk_epilogue_args(cfg, p, rotary))
     return q, k, v
 
 
@@ -246,10 +272,22 @@ def decode_attention_block(cfg: ModelConfig, p, x: torch.Tensor,
     old row back where nothing is to be written, never through the -1
     sentinel, which would wrap to the last position.  Rows that
     ``write_mask`` turns off attend with the new row as the reference's do,
-    and then get their old row back (the reference's ``_mask_entry``)."""
+    and then get their old row back (the reference's ``_mask_entry``).
+    With ``attn_impl="pallas"`` the q/k norm and rotary go through
+    ``ops.qk_rotate``: on CUDA tensors one K1 launch with its page write
+    off."""
     b = x.shape[0]
-    positions = (lengths - 1)[:, None]
-    q, k_new, v_new = project_qkv(cfg, p, x, positions)
+    if cfg.attn_impl == "pallas":
+        from repro_torch.kernels.paged_decode import ops as pd_ops
+        hd = cfg.hd
+        q, k_new, v_new = qkv_projections(cfg, p, x)
+        q, k_new = pd_ops.qk_rotate(q.view(b, cfg.n_heads, hd),
+                                    k_new.view(b, cfg.n_kv_heads, hd),
+                                    lengths, **qk_epilogue_args(cfg, p))
+        q, k_new = q[:, :, None], k_new[:, :, None]
+        v_new = v_new.view(b, cfg.n_kv_heads, 1, hd)
+    else:
+        q, k_new, v_new = project_qkv(cfg, p, x, (lengths - 1)[:, None])
     s_max = k_cache.shape[2]
     ix = (lengths.long() - 1).clamp(0, s_max - 1)
     ix = ix.view(b, 1, 1, 1).expand(b, cfg.n_kv_heads, 1, cfg.hd)

@@ -41,10 +41,12 @@ from repro_torch.models.config import ModelConfig
 
 def paged_decode_attention(cfg: ModelConfig, q, k_new, v_new, k_pages,
                            v_pages, lengths, vm: dict | None = None,
-                           write_mask=None):
-    """q: [B, H, hd]; k_new/v_new: [B, Hkv, hd] (rope'd at position len-1);
-    k/v_pages: [n_pages, slots, Hkv, hd].  Returns (out, k_pages, v_pages)
-    with the pages updated in place.
+                           write_mask=None, *, epilogue: dict):
+    """q: [B, H, hd]; k_new/v_new: [B, Hkv, hd], the raw projections, which
+    the shard step norms and rotates at position len-1 as ``epilogue``
+    (:func:`repro_torch.models.layers.qk_epilogue_args`) says before the
+    write; k/v_pages: [n_pages, slots, Hkv, hd].  Returns (out, k_pages,
+    v_pages) with the pages updated in place.
 
     ``write_mask`` [B] suppresses the K/V write for masked-off sequences
     (the engine prefills one slot through the whole decode batch)."""
@@ -61,7 +63,7 @@ def paged_decode_attention(cfg: ModelConfig, q, k_new, v_new, k_pages,
     acc, m, l, kp, vp = pd_ops.paged_decode_shard(
         q, k_new, v_new, k_pages, v_pages, lengths, bt, fl, fr, write_mask,
         sid=0, n_shards=1, head_start=0, group=group, window=cfg.window,
-        max_pages=max_pages, use_vm=vm is not None, impl=impl)
+        max_pages=max_pages, use_vm=vm is not None, impl=impl, **epilogue)
     out = (acc / torch.where(l == 0.0, 1.0, l)[..., None]).to(q.dtype)
     return out, kp, vp
 
@@ -81,14 +83,16 @@ def paged_decode_block(cfg: ModelConfig, p_attn, h, entry: dict, lengths,
                        vm: dict | None = None, write_mask=None):
     """Attention sub-block for decode with the paged/pooled KV layout.
 
-    h: [B, 1, d] (already normed).  Returns (out [B, 1, d], entry) -- the
-    entry's pages are updated in place."""
-    b = h.shape[0]
-    positions = (lengths - 1)[:, None]
-    q, k_new, v_new = L.project_qkv(cfg, p_attn, h, positions)
+    h: [B, 1, d] (already normed).  The q/k norm and rotary run inside the
+    shard step (on CUDA tensors in K1's launch).  Returns (out [B, 1, d],
+    entry) -- the entry's pages are updated in place."""
+    b, hd = h.shape[0], cfg.hd
+    q, k_new, v_new = L.qkv_projections(cfg, p_attn, h)
     out, kp, vp = paged_decode_attention(
-        cfg, q[:, :, 0], k_new[:, :, 0], v_new[:, :, 0],
-        entry["k_pages"], entry["v_pages"], lengths, vm, write_mask)
+        cfg, q.view(b, cfg.n_heads, hd), k_new.view(b, cfg.n_kv_heads, hd),
+        v_new.view(b, cfg.n_kv_heads, hd), entry["k_pages"],
+        entry["v_pages"], lengths, vm, write_mask,
+        epilogue=L.qk_epilogue_args(cfg, p_attn))
     out = out.reshape(b, 1, cfg.n_heads * cfg.hd) @ p_attn["wo"]
     return out, {"k_pages": kp, "v_pages": vp}
 
