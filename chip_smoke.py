@@ -10,8 +10,10 @@ batch KV layout (K4); then the Mamba2 family at the full width of
 mamba2-780m: prefill through the SSD scan (K5) and recurrent-state serving;
 then the emulated memory itself at the reference's production scale (2^24
 slots of 128 f32, 8 GiB): EMem reads and writes through the slot gather
-(K7) and EMemVM, whose whole-page reads go through the page gather (K6).
-Each phase prints one JSON line with its seconds:
+(K7) and EMemVM, whose whole-page reads go through the page gather (K6);
+then the serving-memory benchmark (``benchmarks/vm_bench_torch.py``) at
+qwen3-0.6b (K1, K2, K6, K7).  Each phase prints one JSON line with its
+seconds:
 
 1. build      -- nvcc builds the five kernel libraries from the checkout's
                  sources, all at once: paged decode (K1, whose entries are
@@ -44,7 +46,10 @@ Each phase prints one JSON line with its seconds:
                  logits agree within the stated tolerance (f32 and bf16);
    profile    -- where a full-width bf16 decode step's time goes (pooled
                  and batch layouts): wall ms per step, device ms per step
-                 by kernel and device ops per step (torch.profiler);
+                 by kernel and device ops per step (torch.profiler), and
+                 one step's device time on the queued-event clock beside
+                 the profiler's (None where a step's launches overflow
+                 the card's launch queue);
 4. serve      -- the full-width engine + scheduler serve a seeded trace in
                  bf16; every request completes, shutdown is leak-free, a
                  swap preemption and prefix sharing happen, and every decode
@@ -116,7 +121,9 @@ Each phase prints one JSON line with its seconds:
                  read_ref/write_ref on a logical copy; at 16 shards and
                  factor 1.0 the drops are exactly _plan's; us per batch,
                  requests/s and GB/s; a pointer chase of 1024 dependent
-                 hops, one K7 launch each, ns per hop;
+                 hops, one K7 launch each, ns per hop; device times on
+                 the queued-event clock where nothing syncs, with the
+                 profiler's records of 1, 10 and 100 one-shard reads;
 14. vm        -- EMemVM over the 8 GiB spec, sharded at 1 and 16 shards,
                  caches of 0 and 16 sets: a seeded sequence of vwrite /
                  vread, unmap / remap, protection, swap-outs that spill,
@@ -124,7 +131,15 @@ Each phase prints one JSON line with its seconds:
                  unsharded twin whose gathers take the plain route (the
                  single-view read_ref/write_ref); every vread launched
                  K7 once and K6 once per cache fill and swap-out; vread /
-                 vwrite us and the hit rate.
+                 vwrite us and the hit rate;
+15. vm_bench  -- benchmarks/vm_bench_torch.py's workloads with the
+                 reference's traffic at qwen3-0.6b's full width in f32:
+                 every reference assertion but the dispatch wall
+                 criterion, which is reported, and the sweep's exact m,
+                 held to 1e-5; K1 and K2 launched once per
+                 layer and decode step in each pooled or reserved
+                 section, both in the sweep, K6 and K7 in the EMemVM
+                 rows; each headline beside the CPU one of BENCH_vm.json.
 
 Then it prints the kernels' JSON line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -275,19 +290,21 @@ def device_profile(fn, iters: int = 20, warmup: int = 3):
     return total / iters / 1e3, out
 
 
-def queued_ms(fn, iters: int = 50, warmup: int = 5):
+def queued_ms(fn, iters: int = 50, warmup: int = 5,
+              sleep_cycles: int = 50_000_000):
     """Device time per call of ``fn()``: CUDA events around ``iters`` calls
-    queued behind a ~25 ms sleep kernel, so that the device runs them back
-    to back whatever the host's launch overhead.  None when the device
-    reached the first event before the host had queued every call (``fn``
-    synchronises with the host, or the host is slower than the sleep)."""
+    queued behind a sleep kernel (``sleep_cycles`` clocks, ~25 ms by
+    default), so that the device runs them back to back whatever the host's
+    launch overhead.  None when the device reached the first event before
+    the host had queued every call (``fn`` synchronises with the host, or
+    the host is slower than the sleep)."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
+    torch.cuda._sleep(sleep_cycles)
     start.record()
     for _ in range(iters):
         fn()
@@ -310,6 +327,31 @@ def timed(fn, iters: int = 50) -> dict:
             "clock": "events" if queued is not None else "profiler",
             "queued_ms": queued, "profiler_ms": prof_ms,
             "loop_ms": cuda_ms(fn, iters=iters)}
+
+
+def launch_queue_ms(dev, counts=(960, 1000, 1024, 1100)) -> dict:
+    """Host ms to launch ``n`` tiny kernels behind a ~0.2 s sleep kernel,
+    for each ``n``: a few ms while the card's launch queue has room, the
+    sleep's length once it is full and the host waits for the card."""
+    import torch
+    x = torch.zeros(16, device=dev)
+    x.add_(1)                                   # loaded before the sleep
+    out = {}
+    for n in counts:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(400_000_000)
+        t = time.perf_counter()
+        for _ in range(n):
+            x.add_(1)
+        out[n] = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+    return out
+
+
+def profiler_records(fn, iters: int) -> int:
+    """Device records torch.profiler kept over ``iters`` calls of ``fn``."""
+    _, by_name = device_profile(fn, iters=iters)
+    return round(by_name.get("device_ops_per_call", 0) * iters)
 
 
 def mk_vm(rng, b, max_lp, ps, lengths, shared_page0):
@@ -973,6 +1015,15 @@ def phase_profile(dev, layout: str, steps: int = 10, cfg=None):
         sampled, _, _ = sampled_decode_step(model, tok, cache, lengths, wm)
         return sampled.cpu()
 
+    # one step with its inputs made beforehand and no read-back, for the
+    # queued-event clock: nothing in it waits for the device
+    tok_q = torch.tensor(rng.integers(0, cfg.vocab_size, (B, 1)),
+                         dtype=torch.int32, device=dev)
+    len_q = torch.full((B,), start, dtype=torch.int32, device=dev)
+
+    def step_queued():
+        sampled_decode_step(model, tok_q, cache, len_q, wm)
+
     for _ in range(3):
         step()
     torch.cuda.synchronize()
@@ -981,15 +1032,28 @@ def phase_profile(dev, layout: str, steps: int = 10, cfg=None):
         step()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
     dev_ms, by_name = device_profile(step, iters=steps, warmup=0)
+    # one step at a time behind a ~0.2 s sleep: the card's launch queue
+    # holds about a thousand launches (launch_queue_ms) and a pooled step
+    # is 999; a longer step (batch: 1307) makes the host wait for the
+    # card, and reads None
+    singles = [queued_ms(step_queued, iters=1, warmup=1,
+                         sleep_cycles=400_000_000) for _ in range(steps)]
+    events_ms = None if None in singles else float(np.median(singles))
     del model, cache
     torch.cuda.empty_cache()
     out = {"model": cfg.name, "layout": layout, "wall_ms_per_step": wall_ms,
-           "device_ms_per_step": dev_ms}
+           "device_ms_per_step": dev_ms,
+           "events_device_ms_per_step": events_ms,
+           "events_busy_share": (None if events_ms is None
+                                 else events_ms / wall_ms),
+           "launch_queue_ms": launch_queue_ms(dev)}
     if dev_ms is None:
         return out
     ops = by_name.pop("device_ops_per_call")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     out.update(busy_share=dev_ms / wall_ms, device_ops_per_step=ops,
+               profiler_over_events=(None if events_ms is None
+                                     else dev_ms / events_ms),
                kernel_ms_per_step={
                    name: sum(v for k, v in by_name.items()
                              if any(sym in k for sym in syms))
@@ -2190,14 +2254,21 @@ def phase_emem(dev):
         payload = n * spec.width * 4
         us_r = wall_us(lambda: emem.read(spec, data, addrs, EMEM_CF))
         us_w = wall_us(lambda: emem.write(spec, data, addrs, vals, EMEM_CF))
-        dev_r, _ = device_profile(lambda: emem.read(spec, data, addrs,
-                                                    EMEM_CF), iters=10)
-        dev_w, _ = device_profile(lambda: emem.write(spec, data, addrs, vals,
-                                                     EMEM_CF), iters=10)
+
+        def read():
+            return emem.read(spec, data, addrs, EMEM_CF)
+
+        # device time from the queued-event clock where nothing syncs
+        # (timed); the profiler keeps no record of a short window at times
+        # (read_profiler_records: at 1 shard a read is one K7 launch)
+        dev_r = timed(read, iters=10)
+        dev_w = timed(lambda: emem.write(spec, data, addrs, vals, EMEM_CF),
+                      iters=10)
         res[f"s{n_shards}"] = {
             "requests": n, "read_us": us_r, "write_us": us_w,
-            "read_device_us": None if dev_r is None else dev_r * 1e3,
-            "write_device_us": None if dev_w is None else dev_w * 1e3,
+            "read_device_us": dev_r["device_ms"] * 1e3,
+            "write_device_us": dev_w["device_ms"] * 1e3,
+            "read_clocks": dev_r, "write_clocks": dev_w,
             "read_requests_per_s": n / us_r * 1e6,
             "write_requests_per_s": n / us_w * 1e6,
             "read_gb_per_s": payload / us_r / 1e3,
@@ -2205,6 +2276,8 @@ def phase_emem(dev):
             "stats": emem.dispatch_stats(spec, EMEM_REQUESTS, EMEM_CF)}
         del logical
         if n_shards == 1:
+            res["s1"]["read_profiler_records"] = {
+                iters: profiler_records(read, iters) for iters in (1, 10, 100)}
             res["chase"], hops = pointer_chase(dev, spec, data)
             launches += hops
         del data
@@ -2429,10 +2502,61 @@ def phase_vm(dev):
     return launches, res
 
 
+# -- phase 15 ------------------------------------------------------------------
+
+#: the sections whose engines serve through K1 and K2 (the pooled and
+#: reserved layouts); ``paged_decode`` is the sweep, ``throughput`` EMemVM
+VM_BENCH_SERVING = ("prefix_sharing", "swap", "tiered", "retention",
+                    "scheduling", "slo", "dispatch")
+
+
+def phase_vm_bench(dev):
+    """benchmarks/vm_bench_torch.py at qwen3-0.6b's full width in f32: the
+    reference's serving workloads with their traffic unchanged, every
+    assertion of the reference held except the dispatch wall criterion,
+    which is reported (``wall_criterion``), and the sweep's exact m,
+    held to 1e-5 against the composed step (K2 sums each q.k in its own
+    order).  Each pooled or reserved
+    section's engines launched K1 and K2 once per layer and decode step,
+    the sweep launched both (and agreed with the composed step), the
+    EMemVM rows K6 and K7.  Returns ({kernel: launches on the path, the
+    sweep's excluded}, results with the CPU headline of BENCH_vm.json
+    beside each of this run's)."""
+    from benchmarks import vm_bench_torch as vb
+    from repro_torch.kernels.paged_decode import gather as K67
+    from repro_torch.kernels.paged_decode import kernel as K
+    K.reset_launch_counts()
+    K67.reset_launch_counts()
+    _, record = vb.collect(device=dev, base="qwen3-0.6b")
+    launches = {**K.LAUNCHES, **K67.LAUNCHES}
+    counts = record["kernel_launches"]
+    n_layers = full_cfg("float32").n_layers
+    for sec in VM_BENCH_SERVING:
+        c = counts[sec]
+        want = n_layers * c["decode_steps"]
+        if not want or c["paged_kv_write"] != want \
+                or c["paged_gather_attend"] != want:
+            raise AssertionError(f"vm_bench {sec}: {c}")
+    sweep, vm = counts["paged_decode"], counts["throughput"]
+    if min(sweep.values()) == 0 or min(vm.values()) == 0:
+        raise AssertionError(f"vm_bench kernels idle: sweep {sweep}, vm {vm}")
+    for name, n in sweep.items():          # a comparison, not the path
+        launches[name] -= n
+    cpu = vb._load_baseline()
+    headlines = {f"{sec}.{key}": {"h100": record[sec][key],
+                                  "cpu_bench_tiny": cpu[sec][key]}
+                 for sec, key, _ in vb._headline_items()}
+    # prefix_index is host work whose query stream is numpy's Zipf
+    # sampler: the numpy version stands beside its hit rate
+    return launches, {"base": "qwen3-0.6b", "dtype": "float32",
+                      "numpy": np.__version__, "headlines": headlines,
+                      **record}
+
+
 # -- main -----------------------------------------------------------------------
 
 PHASES = ("build,kernels,teacher,profile,serve,tokens,flash,prefill,batch,"
-          "ssd,ssm_prefill,ssm_serve,gather,emem,vm")
+          "ssd,ssm_prefill,ssm_serve,gather,emem,vm,vm_bench")
 #: the kernels' libraries, sources and the TPU kernels they replace
 KERNELS = (
     ("paged_kv_write", "k1", "src/repro_torch/kernels/paged_decode/csrc/"
@@ -2571,6 +2695,13 @@ def main(argv=None) -> int:
         launches["gather_pages"] = vm_launches["gather_pages"]
         emit({"phase": "vm", "seconds": time.monotonic() - t,
               "launches": vm_launches, **res})
+    if "vm_bench" in phases:
+        t = time.monotonic()
+        bench_launches, res = phase_vm_bench(dev)
+        for name, n in bench_launches.items():
+            launches[name] += n
+        emit({"phase": "vm_bench", "seconds": time.monotonic() - t,
+              "launches": bench_launches, **res})
 
     def ms(key):
         # the device time of timed(); the event-timed loop where neither

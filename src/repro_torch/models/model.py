@@ -44,6 +44,21 @@ class Model(nn.Module):
                              torch_dtype(cfg.param_dtype), self.device)
         self._periods = None
 
+    def with_config(self, cfg: ModelConfig) -> "Model":
+        """A model over this one's weight tensors under ``cfg``, which may
+        differ from ``self.cfg`` only in fields that shape no weight (the
+        KV layout, its pool and page size, the kernel switches): engines of
+        one model size share one set of weights."""
+        if (T.decoder_defs(cfg) != T.decoder_defs(self.cfg)
+                or cfg.param_dtype != self.cfg.param_dtype):
+            raise ValueError(
+                f"{cfg.name}: weights differ from {self.cfg.name}'s")
+        other = Model.__new__(Model)
+        nn.Module.__init__(other)
+        other.cfg, other.device = cfg, self.device
+        other.params, other._periods = self.params, self._periods
+        return other
+
     def periods(self) -> list[dict]:
         """Per-period views of the stacked block weights, made once."""
         if self._periods is None:

@@ -1,7 +1,8 @@
-"""Port hygiene: the PyTorch package and chip_smoke.py import neither JAX
-nor the reference package, the entry points refuse to fall back to the
-CPU silently when no CUDA device is present, and the kernel packages export
-the reference's public names."""
+"""Port hygiene: the PyTorch package, chip_smoke.py, the port's benchmark
+and its serve example import neither JAX nor the reference package (nor
+the reference's benchmark modules), the entry points refuse to fall back
+to the CPU silently when no CUDA device is present, and the kernel
+packages export the reference's public names."""
 import ast
 import importlib
 import pathlib
@@ -13,7 +14,10 @@ torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "benchmarks" / "vm_bench_torch.py",
+    ROOT / "examples" / "serve_lm_torch.py"]
+#: the reference's benchmark modules, which import JAX
+REFERENCE_BENCHMARKS = ("benchmarks.vm_bench", "benchmarks.kernel_bench")
 
 
 def _imports(path):
@@ -22,13 +26,15 @@ def _imports(path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
 
 
 def test_port_imports_no_jax_and_no_reference():
     assert len(PORT_FILES) > 30
     bad = [(str(path.relative_to(ROOT)), name)
            for path in PORT_FILES for name in _imports(path)
-           if name.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if name.split(".")[0] in ("jax", "jaxlib", "repro")
+           or name in REFERENCE_BENCHMARKS]
     assert not bad, bad
 
 
