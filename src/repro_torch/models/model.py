@@ -20,13 +20,16 @@ from repro_torch.models.config import ModelConfig
 
 def _build(defs: dict, gen: torch.Generator, dtype, device) -> nn.Module:
     """Nested ParamDef dicts -> ModuleDicts of ParameterDicts (sorted key
-    order, as the reference flattens its pytree)."""
+    order, as the reference flattens its pytree).  A table that mixes
+    ParamDefs and sub-tables (the MoE block's ``shared`` MLP beside its
+    router) is a ParameterDict holding the sub-tables as modules."""
     if all(isinstance(v, dict) for v in defs.values()):
         return nn.ModuleDict({k: _build(defs[k], gen, dtype, device)
                               for k in sorted(defs)})
     return nn.ParameterDict({
-        k: nn.Parameter(defs[k].initialize(gen, dtype, device),
-                        requires_grad=False)
+        k: (_build(defs[k], gen, dtype, device) if isinstance(defs[k], dict)
+            else nn.Parameter(defs[k].initialize(gen, dtype, device),
+                              requires_grad=False))
         for k in sorted(defs)})
 
 

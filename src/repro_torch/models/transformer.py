@@ -1,7 +1,6 @@
 """Decoder-only stack: the full-sequence forward, prefill into the batch KV
 layout, and decode over the batch, paged and pooled KV layouts (a port of
-``repro.models.transformer`` for the dense, SSM and expert-free hybrid
-families).
+``repro.models.transformer`` for the dense, MoE, SSM and hybrid families).
 
 Parameters and caches are stacked over layer periods ([n_periods, ...]
 leading axis) exactly as in the reference, so the weight bridge and the
@@ -24,7 +23,7 @@ The reference's ``remat``, ``block_barrier``, ``unroll_layers`` and
 isation, optimisation barriers, unrolled scans, sharding constraints): an
 eager PyTorch loop has nothing they would change, so the port reads none
 of them.  ``lm_loss`` waits for the training slice (ROADMAP Queue 1 item
-10), MoE for item 7 and enc-dec for item 8.
+2) and enc-dec for item 1.
 """
 from __future__ import annotations
 
@@ -34,6 +33,7 @@ import torch
 
 from repro_torch.device import torch_dtype
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 
@@ -42,11 +42,9 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for what this
     slice of the port does not serve yet."""
     if cfg.family == "encdec" or cfg.n_encoder_layers:
-        raise NotImplementedError("enc-dec models: ROADMAP Queue 1 item 8")
+        raise NotImplementedError("enc-dec models: ROADMAP Queue 1 item 1")
     if cfg.frontend is not None:
-        raise NotImplementedError("vision/audio frontends: ROADMAP Queue 1 item 8")
-    if cfg.n_experts:
-        raise NotImplementedError("MoE models: ROADMAP Queue 1 item 7")
+        raise NotImplementedError("vision/audio frontends: ROADMAP Queue 1 item 1")
 
 
 # ---------------------------------------------------------------------------
@@ -60,7 +58,10 @@ def block_defs(cfg: ModelConfig, i: int) -> dict:
         d["mamba"] = S.ssm_defs(cfg)
     if cfg.layer_has_mlp(i):
         d["ln_mlp"] = L.norm_defs(cfg)
-        d["mlp"] = L.mlp_defs(cfg)
+        if cfg.layer_has_moe(i):
+            d["moe"] = M.moe_defs(cfg)
+        else:
+            d["mlp"] = L.mlp_defs(cfg)
     return d
 
 
@@ -87,6 +88,8 @@ def _ffn(cfg: ModelConfig, i: int, p, x: torch.Tensor) -> torch.Tensor:
     if not cfg.layer_has_mlp(i):
         return x
     h = L.rms_norm(x, p["ln_mlp"]["w"], cfg.rms_eps)
+    if cfg.layer_has_moe(i):
+        return x + M.moe_block(cfg, p["moe"], h)
     return x + L.mlp_block(p["mlp"], h)
 
 

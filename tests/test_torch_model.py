@@ -3,8 +3,9 @@ initialiser's distributions, and ``decode_step`` logits against
 ``repro.models.transformer.decode_step`` on the same weights, tokens,
 pages and block tables (tiny_dense_cfg and the qwen3-0.6b smoke config,
 pooled and paged layouts, scrambled tables with a shared read-only frame
-and a masked-off write).  Tolerance: atol 1e-4 on f32 logits (the same
-arithmetic in another summation order)."""
+and a masked-off write), and the other dense archs' smoke configs
+through tests/torch_decode_parity.py.  Tolerance: atol 1e-4 on f32 logits
+(the same arithmetic in another summation order)."""
 import dataclasses
 
 import numpy as np
@@ -18,13 +19,13 @@ from conftest import tiny_dense_cfg  # noqa: E402
 from repro.configs import get_smoke_config  # noqa: E402
 from repro.models import Model as JaxModel  # noqa: E402
 from repro.models import transformer as jax_T  # noqa: E402
-from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.weights import from_jax_params  # noqa: E402
+from torch_decode_parity import (B, MAX_LEN, SLOTS,  # noqa: E402
+                                 assert_decode_matches_jax, pooled, port_cfg,
+                                 seeded_params, tables)
 
 torch.set_num_threads(2)
-
-B, MAX_LEN, SLOTS = 3, 24, 4
 
 
 def _cfgs(layout):
@@ -34,32 +35,8 @@ def _cfgs(layout):
     return {"tiny": tiny, "qwen3-smoke": qwen}
 
 
-def _port_cfg(cfg) -> ModelConfig:
-    return ModelConfig(**dataclasses.asdict(cfg))
-
-
 def _np_tree(params):
     return jax.tree.map(np.asarray, params)
-
-
-def _tables(rng, lengths, max_lpages):
-    """Scrambled block tables over B * max_lpages frames; page 0 of every
-    sequence is one shared read-only frame."""
-    n_frames = B * max_lpages
-    bt = np.full((B, max_lpages), -1, np.int32)
-    fl = np.zeros((n_frames,), np.int32)
-    fr = np.zeros((n_frames,), bool)
-    free = list(rng.permutation(n_frames))
-    sh = int(free.pop())
-    fr[sh] = True
-    for s in range(B):
-        for lp in range(max_lpages):
-            if lp == 0:
-                bt[s, 0] = sh
-                continue
-            f = int(free.pop())
-            bt[s, lp], fl[f] = f, lp
-    return {"block_table": bt, "frame_lpage": fl, "frame_ro": fr}
 
 
 @pytest.fixture(scope="module")
@@ -76,7 +53,7 @@ def test_weight_bridge_roundtrip(jax_models):
     """Every reference parameter lands in the port's parameter of the same
     path, unchanged; a shape mismatch raises."""
     cfg, params = jax_models[("qwen3-smoke", "pooled")]
-    pcfg = _port_cfg(cfg)
+    pcfg = port_cfg(cfg)
     tree = _np_tree(params)
     model = from_jax_params(pcfg, tree, device="cpu")
     flat = jax.tree_util.tree_flatten_with_path(tree)[0]
@@ -98,8 +75,8 @@ def test_init_matches_reference_distributions():
     the same seed gives the same weights."""
     cfg = tiny_dense_cfg(n_layers=4, d_model=128, d_ff=256, vocab_size=512,
                          kv_layout="pooled")
-    a = Model(_port_cfg(cfg), device="cpu", seed=3)
-    b = Model(_port_cfg(cfg), device="cpu", seed=3)
+    a = Model(port_cfg(cfg), device="cpu", seed=3)
+    b = Model(port_cfg(cfg), device="cpu", seed=3)
     for pa, pb in zip(a.parameters(), b.parameters()):
         assert torch.equal(pa, pb)
     wq = a.params["b0"]["attn"]["wq"]
@@ -123,10 +100,10 @@ def test_decode_step_logits_match_jax(jax_models, name, layout):
     shape = jcache["b0"]["k_pages"].shape
     kp = rng.normal(size=shape).astype(np.float32)
     vp = rng.normal(size=shape).astype(np.float32)
-    vm = _tables(rng, None, max_lpages)
+    vm = tables(rng, max_lpages)
     jcache = {"b0": {"k_pages": jnp.asarray(kp), "v_pages": jnp.asarray(vp)},
               "vm": {k: jnp.asarray(v) for k, v in vm.items()}}
-    model = from_jax_params(_port_cfg(cfg), _np_tree(params), device="cpu")
+    model = from_jax_params(port_cfg(cfg), _np_tree(params), device="cpu")
     pcache = model.init_cache(B, MAX_LEN)
     pcache["b0"]["k_pages"].copy_(torch.tensor(kp))
     pcache["b0"]["v_pages"].copy_(torch.tensor(vp))
@@ -150,3 +127,40 @@ def test_decode_step_logits_match_jax(jax_models, name, layout):
     sh = int(vm["block_table"][0, 0])
     np.testing.assert_array_equal(pcache["b0"]["k_pages"][:, sh].numpy(),
                                   kp[:, sh])
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "h2o-danube-1.8b",
+                                  "qwen2-72b"])
+def test_dense_arch_decode_step_logits_match_jax(arch):
+    """The other dense archs' smoke configs on the pooled layout
+    (tests/torch_decode_parity.py): granite's tied embeddings and padded
+    vocab, danube's window of 8, which bites within MAX_LEN 24, and
+    qwen2-72b's QKV bias, drawn nonzero from the seed in both frameworks."""
+    cfg = pooled(get_smoke_config(arch))
+    params = seeded_params(cfg, np.random.default_rng(9))
+    if cfg.qkv_bias:
+        assert np.abs(params["b0"]["attn"]["bq"]).min() > 0
+    if cfg.window:
+        assert cfg.window < MAX_LEN - 3
+    assert_decode_matches_jax(cfg, params)
+
+
+def test_registry_serves_the_reference_decoder_archs():
+    """The port's registry lists the reference registry's archs but its
+    enc-dec and VLM ones, with the same configs; ``check_supported``
+    refuses exactly those two."""
+    from repro.configs import get_config, list_archs
+    from repro_torch import configs as port_configs
+    from repro_torch.models.transformer import check_supported
+    waiting = {"seamless-m4t-medium", "qwen2-vl-7b"}
+    assert set(port_configs.list_archs()) == set(list_archs()) - waiting
+    for arch in list_archs():
+        cfg = port_cfg(get_config(arch))
+        if arch in waiting:
+            with pytest.raises(NotImplementedError):
+                check_supported(cfg)
+            continue
+        check_supported(cfg)
+        assert port_configs.get_config(arch) == cfg
+        assert port_configs.get_smoke_config(arch) == port_cfg(
+            get_smoke_config(arch))
