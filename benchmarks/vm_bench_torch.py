@@ -27,7 +27,8 @@ composed einsum's, and ``m`` is held to 1e-5 (``m_max_abs_diff``).
 
 The workloads' traffic is the reference's.  The model is ``--base``:
 ``bench-tiny`` (and the 1-layer ``bench-dispatch``) as in the reference,
-or ``qwen3-0.6b`` at full width in f32 for every serving section.  Weights
+or ``qwen3-0.6b`` at full width in f32 for every serving section
+(``collect``'s ``n_layers`` cuts its depth).  Weights
 come from seed 0, one set per base config and device, shared by every
 engine of the run.  On the CPU at ``bench-tiny`` every deterministic
 headline equals the reference's committed ``BENCH_vm.json``, which
@@ -120,18 +121,25 @@ def _paged_launches() -> dict:
 class Bench:
     """What every section runs on: the device, the serving and dispatch
     base configs (``base``: ``bench-tiny``, or one registered arch at full
-    width in f32 for both), one set of seeded weights per base config, and
-    the kernel launches each section's engines made (``launches``)."""
+    width in f32 for both, cut to ``n_layers`` layers where given), one set
+    of seeded weights per base config, and the kernel launches each
+    section's engines made (``launches``)."""
 
-    def __init__(self, device=None, base: str = "bench-tiny"):
+    def __init__(self, device=None, base: str = "bench-tiny",
+                 n_layers: int | None = None):
         if base not in BASES:
             raise ValueError(f"unknown base {base!r}; known: {BASES}")
         self.device = resolve_device(device)
         if base == "bench-tiny":
+            if n_layers is not None:
+                raise ValueError("n_layers cuts a registered arch's depth; "
+                                 "bench-tiny has its own")
             self.serving, self.dispatch = BENCH_TINY, BENCH_DISPATCH
         else:
             cfg = dataclasses.replace(get_config(base), param_dtype="float32",
                                       compute_dtype="float32")
+            if n_layers is not None:
+                cfg = dataclasses.replace(cfg, n_layers=n_layers)
             self.serving = self.dispatch = cfg
         self._weights: dict[str, Model] = {}
         self.launches: dict[str, dict] = {}
@@ -856,10 +864,9 @@ def _dispatch_rows(record: dict, bench: Bench) -> list[dict]:
     wall-second from the best of two timed replays per mode.  The
     reference asserts ``>= 2x``; here the ratio is recorded with
     ``wall_criterion`` and a miss printed on stderr, not raised, so that
-    the other workloads still run and gate."""
-    for max_fused, layout in ((_MAX_FUSED, "pooled"), (1, "pooled"),
-                              (_MAX_FUSED, "paged")):
-        _run_dispatch(bench, max_fused, layout)   # warm caches, untimed
+    the other workloads still run and gate.  The untimed replays of
+    :func:`_dispatch_counts` run each mode once first and so warm the
+    caches of the timed ones."""
     rec = _dispatch_counts(bench)
     wall_f = min(_run_dispatch(bench, _MAX_FUSED)[2],
                  _run_dispatch(bench, _MAX_FUSED)[2])
@@ -1073,13 +1080,13 @@ SECTIONS = (("prefix_sharing", _prefix_rows), ("swap", _swap_rows),
             ("dispatch", _dispatch_rows), ("paged_decode", _paged_decode_rows))
 
 
-def collect(smoke: bool = False, device=None,
-            base: str = "bench-tiny") -> tuple[list[dict], dict]:
-    """Run every section on ``device`` (``cuda`` unless given) at ``base``.
-    Returns (csv rows, record); the record also holds each section's wall
-    seconds (``section_seconds``) and kernel launches
-    (``kernel_launches``)."""
-    bench = Bench(device, base)
+def collect(smoke: bool = False, device=None, base: str = "bench-tiny",
+            n_layers: int | None = None) -> tuple[list[dict], dict]:
+    """Run every section on ``device`` (``cuda`` unless given) at ``base``
+    (cut to ``n_layers`` layers where given).  Returns (csv rows, record);
+    the record also holds each section's wall seconds
+    (``section_seconds``) and kernel launches (``kernel_launches``)."""
+    bench = Bench(device, base, n_layers)
     record: dict = {}
     seconds = {}
     t = time.perf_counter()

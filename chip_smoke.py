@@ -14,9 +14,12 @@ slots of 128 f32, 8 GiB): EMem reads and writes through the slot gather
 then the serving-memory benchmark (``benchmarks/vm_bench_torch.py``) at
 qwen3-0.6b (K1, K2, K6, K7); then the reference's other decoder archs
 (granite-3-2b, h2o-danube-1.8b, qwen2-moe-a2.7b, qwen2-72b, mixtral-8x7b,
-jamba-v0.1-52b) at their published widths, served through K1 and K2, with
-K3 and K5 in their prefills.  Each phase prints one JSON line with its
-seconds (phase archs one per arch):
+jamba-v0.1-52b, and qwen2-vl-7b fed frame embeddings) at their published
+widths, served through K1 and K2, with K3 and K5 in their prefills; then
+the encoder-decoder seamless-m4t-medium (K3 in its encoder and
+cross-attention, K1 and K4 in its decoder's self-attention); then
+training on the plain paths (qwen3-0.6b and seamless-m4t-medium).  Each
+phase prints one JSON line with its seconds (phase archs one per arch):
 
 1. build      -- nvcc builds the five kernel libraries from the checkout's
                  sources, all at once: paged decode (K1, whose entries are
@@ -57,8 +60,9 @@ seconds (phase archs one per arch):
                  bf16; every request completes, shutdown is leak-free, a
                  swap preemption and prefix sharing happen, and every decode
                  step of every layer launched both kernels;
-5. tokens     -- the same trace in f32 gives identical per-uid tokens with
-                 the kernels and with the composed oracle;
+5. tokens     -- the trace in f32 at CUT_LAYERS's depth gives identical
+                 per-uid tokens and telemetry with the kernels and with
+                 the composed oracle;
 6. flash      -- K3 against ref.mha and K4 against the plain branch of
                  flash_ops.decode_attention_partial, at the prefill and
                  batch-serving shapes (f32 and bf16, windows None and 64,
@@ -77,7 +81,8 @@ seconds (phase archs one per arch):
                  prefill runs K3 on the tensor cores once per layer, and in
                  f32 prefill(510) plus one batch-layout decode step (K4)
                  reproduces prefill(511)'s logits;
-8. batch      -- the full-width engine + scheduler serve the phase-4 trace
+8. batch      -- the full-width engine + scheduler at CUT_LAYERS's depth
+                 serve the phase-4 trace's first BATCH_REQUESTS requests
                  on the batch KV layout with attn_impl "pallas": in bf16
                  every decode step of every layer launched K4 and K1 with
                  its page write off (the q/k norm and rotary); in f32 the
@@ -106,8 +111,10 @@ seconds (phase archs one per arch):
                  step reproduces prefill(511); in bf16 the device time of a
                  steady prefill and K5's share, with K5 on the tensor cores
                  and forced to the CUDA cores;
-11. ssm_serve  -- the full-width mamba2-780m engine + scheduler serve the
-                 phase-4 trace on the batch layout in bf16 (its decode is
+11. ssm_serve  -- the full-width mamba2-780m engine + scheduler at
+                 CUT_LAYERS's depth serve the phase-4 trace's first
+                 BATCH_REQUESTS requests on the batch layout in bf16 (its
+                 decode is
                  the recurrent step, plain torch; no kernel launches), a
                  profiled decode step gives the device busy share, and in
                  f32 fused and stepwise runs serve identical tokens;
@@ -136,7 +143,8 @@ seconds (phase archs one per arch):
                  K7 once and K6 once per cache fill and swap-out; vread /
                  vwrite us and the hit rate;
 15. vm_bench  -- benchmarks/vm_bench_torch.py's workloads with the
-                 reference's traffic at qwen3-0.6b's full width in f32:
+                 reference's traffic at qwen3-0.6b's full width in f32,
+                 at CUT_LAYERS's depth:
                  every reference assertion but the dispatch wall
                  criterion, which is reported, and the sweep's exact m,
                  held to 1e-5; K1 and K2 launched once per
@@ -162,7 +170,32 @@ seconds (phase archs one per arch):
                  through K3 (D 64 on the tensor cores, D 80 on the CUDA
                  cores) against the plain path, and K3 against ref.mha at
                  their shapes; jamba's through K5 at state 16, and K5 on
-                 the real inputs of its 7 Mamba2 layers.
+                 the real inputs of its 7 Mamba2 layers; qwen2-vl-7b's
+                 (28 layers, G 7, QKV bias) from frame embeddings through
+                 K3 on the tensor cores, and K2 at its G 7 against its
+                 plain version with its time (``--archs`` picks a subset);
+17. encdec    -- seamless-m4t-medium at its published widths in bf16 on
+                 SyntheticLM's frame embeddings (B 8, S_src 512, seed 0):
+                 prepare_cross_cache and 64 greedy decode steps launch K3
+                 12 + 12 x 64 times (encoder, then cross-attention at
+                 Sq 1) and K1 (write off) and K4 12 x 64 times; each step
+                 held in lockstep to the plain path within phase archs'
+                 gate (bf16 and f32); K3 on every layer's real inputs
+                 and at Sq 640 > Skv 512; in f32 the kernel decoder's
+                 greedy tokens equal the plain decoder's on one encoder
+                 output, K3 on the encoder's real inputs is held to
+                 float64, and lm_loss with the kernels equals
+                 "chunked"'s; a
+                 decode step's device time against its weights' read,
+                 K3 at Sq 1 beside SDPA, K4 at D 64 / G 1;
+18. train     -- qwen3-0.6b at full width trains 10 steps on the plain
+                 paths (bf16 with f32 masters, remat "block", 8 x 512):
+                 the loss falls, a run resumed from the step-5
+                 checkpoint's files equals the uninterrupted one bit for
+                 bit, 2 microbatches match 1; seamless-m4t-medium takes
+                 two finite, falling steps; the kernels' grad guard
+                 raises for K3 and K5; step ms, tokens/s, the compute
+                 bound's share and peak memory.
 
 Then it prints the kernels' JSON line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -267,10 +300,37 @@ SERVE_POOL = 32
 SERVE_TRACE = dict(seed=0, n_requests=16, arrival_rate=0.25, zipf_alpha=1.2,
                    prompt_len_short=32, prompt_len_long=192, out_len_short=16,
                    out_len_long=48, vocab_size=151936)
+#: the trace's requests on the batch layout (phases batch, ssm_serve),
+#: where nothing swaps or shares: fewer, so that the script's host-bound
+#: serving fits its time; phase tokens' two f32 runs serve all 16 and swap
+BATCH_REQUESTS = 8
+TOKENS_REQUESTS = SERVE_TRACE["n_requests"]
+#: the depth of the serving checks that repeat the main path's work on
+#: other paths (phases tokens, batch and vm_bench at qwen3-0.6b, 28
+#: published layers; phase ssm_serve at mamba2-780m, 48): their engines
+#: launch every layer's ops from Python, so a step's wall time grows with
+#: the depth while the kernels' shapes stay the full width's.  Phases
+#: teacher, profile and serve keep the published depth.
+CUT_LAYERS = {"qwen3-0.6b": 4, "mamba2-780m": 8}
+
+
+def reduced(arch: str) -> dict:
+    """The ``reduced`` entry of a phase run at CUT_LAYERS[arch] layers."""
+    from repro_torch.configs import get_config
+    return {"n_layers": CUT_LAYERS[arch],
+            "published_n_layers": get_config(arch).n_layers}
+
+
+#: a file that every emitted line is also appended to (``--log``)
+LOG_PATH = None
 
 
 def emit(obj: dict) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    if LOG_PATH:
+        with open(LOG_PATH, "a") as f:
+            f.write(line + "\n")
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -1119,12 +1179,14 @@ def phase_teacher(dev, dtype: str, steps: int = 64, model=None,
 
 # -- phases 4 and 5 --------------------------------------------------------------
 
-def serve(dev, dtype: str, **cfg_kw):
-    """Replay the trace through the full-width qwen3-0.6b engine (pooled
-    layout unless ``cfg_kw`` says otherwise); returns (per-uid outputs,
-    shutdown stats, seconds)."""
+def serve(dev, dtype: str, n_requests=None, **cfg_kw):
+    """Replay the trace (cut to ``n_requests`` where given) through the
+    full-width qwen3-0.6b engine (pooled layout unless ``cfg_kw`` says
+    otherwise); returns (per-uid outputs, shutdown stats, seconds)."""
     cfg = full_cfg(dtype, **{"kv_pool_pages": SERVE_POOL, **cfg_kw})
-    return serve_model(dev, cfg, SERVE_ENGINE, SERVE_TRACE)
+    trace = dict(SERVE_TRACE, n_requests=n_requests or SERVE_TRACE[
+        "n_requests"])
+    return serve_model(dev, cfg, SERVE_ENGINE, trace)
 
 
 def serve_model(dev, cfg, engine: dict, trace: dict, model=None):
@@ -1196,16 +1258,21 @@ def phase_serve(dev):
 
 
 def phase_tokens(dev):
-    kern, st_k, dt_k = serve(dev, "float32", paged_kernel="auto")
-    comp, st_c, dt_c = serve(dev, "float32", paged_kernel="composed")
+    cut = CUT_LAYERS["qwen3-0.6b"]
+    kern, st_k, dt_k = serve(dev, "float32", TOKENS_REQUESTS,
+                             paged_kernel="auto", n_layers=cut)
+    comp, st_c, dt_c = serve(dev, "float32", TOKENS_REQUESTS,
+                             paged_kernel="composed", n_layers=cut)
     if kern != comp:
         bad = sorted(u for u in kern if kern[u] != comp.get(u))
         raise AssertionError(f"f32 served tokens differ, kernels vs composed, "
                              f"for uids {bad}")
     if st_k["telemetry"] != st_c["telemetry"]:
         raise AssertionError("f32 telemetry differs, kernels vs composed")
-    return {"requests": len(kern),
+    return {"reduced": reduced("qwen3-0.6b"), "requests": len(kern),
             "new_tokens": sum(len(o) for o in kern.values()),
+            "swapped": st_k["swapped"],
+            "shared_prompt_tokens": st_k["shared_prompt_tokens"],
             "kernels_s": dt_k, "composed_s": dt_c}
 
 
@@ -1666,7 +1733,8 @@ def phase_prefill(dev, dtype: str):
 # -- phase 8 -------------------------------------------------------------------
 
 def phase_batch(dev):
-    """The phase-4 trace on the batch KV layout: bf16 with the kernels (every
+    """The phase-4 trace's first BATCH_REQUESTS requests on the batch KV
+    layout at CUT_LAYERS's depth: bf16 with the kernels (every
     decode step of every layer launches K1 with its page write off, for the
     q/k norm and rotary, and K4; K2 and K3 never run), then f32 with the
     kernels and with the plain path (attn_impl "ref"), whose per-uid tokens
@@ -1674,23 +1742,26 @@ def phase_batch(dev):
     from repro_torch.kernels.flash_attention import kernel as K3
     from repro_torch.kernels.paged_decode import flash as K4
     from repro_torch.kernels.paged_decode import kernel as K
-    batch = dict(kv_layout="batch")
+    batch = dict(kv_layout="batch", n_layers=CUT_LAYERS["qwen3-0.6b"])
     for mod in (K, K3, K4):
         mod.reset_launch_counts()
-    outputs, stats, dt = serve(dev, "bfloat16", attn_impl="pallas", **batch)
+    outputs, stats, dt = serve(dev, "bfloat16", BATCH_REQUESTS,
+                               attn_impl="pallas", **batch)
     launches = K4.LAUNCHES["flash_decode"]
     k1 = K.LAUNCHES["paged_kv_write"]
     others = {"paged_gather_attend": K.LAUNCHES["paged_gather_attend"],
               **K3.LAUNCHES}
-    n_attn = attn_layers(full_cfg("bfloat16"))
+    n_attn = attn_layers(full_cfg("bfloat16", **batch))
     for name, n in (("flash_decode", launches), ("paged_kv_write", k1)):
         if n == 0 or n != n_attn * stats["decode_steps"]:
             raise AssertionError(f"{name}: {n} launches for "
                                  f"{stats['decode_steps']} decode steps")
     if any(others.values()):
         raise AssertionError(f"batch serving launched other kernels: {others}")
-    kern, st_k, dt_k = serve(dev, "float32", attn_impl="pallas", **batch)
-    plain, st_p, dt_p = serve(dev, "float32", attn_impl="ref", **batch)
+    kern, st_k, dt_k = serve(dev, "float32", BATCH_REQUESTS,
+                             attn_impl="pallas", **batch)
+    plain, st_p, dt_p = serve(dev, "float32", BATCH_REQUESTS,
+                              attn_impl="ref", **batch)
     if kern != plain:
         bad = sorted(u for u in kern if kern[u] != plain.get(u))
         raise AssertionError(f"f32 batch-layout tokens differ, kernels vs "
@@ -1699,6 +1770,7 @@ def phase_batch(dev):
         raise AssertionError("f32 batch-layout telemetry differs")
     new_tokens = sum(len(o) for o in outputs.values())
     return launches, {
+        "reduced": reduced("qwen3-0.6b"),
         "completed": len(outputs), "new_tokens": new_tokens,
         "decode_steps": stats["decode_steps"],
         "dispatches": stats["dispatches"], "flash_decode_launches": launches,
@@ -2199,13 +2271,14 @@ def phase_ssm_prefill(dev, dtype: str):
 
 #: the batch layout, as the serve CLI runs it (no frames: nothing to retain)
 SSM_SERVE_ENGINE = dict(slots=8, max_len=512, max_fused_steps=8)
-#: f32 fused against stepwise: the phase-4 trace cut to its first requests
+#: f32 fused against stepwise: the trace cut to its first requests
 SSM_TOKENS_REQUESTS = 4
 
 
 def phase_ssm_serve(dev):
-    """The phase-4 trace through the full-width mamba2-780m engine on the
-    batch layout in bf16: every request completes and no kernel launches
+    """The phase-4 trace's first BATCH_REQUESTS requests through the
+    full-width mamba2-780m engine, cut to CUT_LAYERS's depth, on the batch
+    layout in bf16: every request completes and no kernel launches
     (the recurrent decode step is plain torch, prompts prefill through it);
     one profiled decode step; in f32 fused and stepwise runs serve
     identical per-uid tokens."""
@@ -2216,14 +2289,17 @@ def phase_ssm_serve(dev):
     mods = (K, K3, K4, K5)
     for mod in mods:
         mod.reset_launch_counts()
-    cfg = mamba_cfg("bfloat16", attn_impl="pallas")
-    trace = dict(SERVE_TRACE, vocab_size=cfg.vocab_size)
+    cut = CUT_LAYERS["mamba2-780m"]
+    cfg = mamba_cfg("bfloat16", attn_impl="pallas", n_layers=cut)
+    trace = dict(SERVE_TRACE, vocab_size=cfg.vocab_size,
+                 n_requests=BATCH_REQUESTS)
     outputs, stats, dt = serve_model(dev, cfg, SSM_SERVE_ENGINE, trace)
     launched = {k: n for mod in mods for k, n in mod.LAUNCHES.items() if n}
     if launched:
         raise AssertionError(f"SSM serving launched kernels: {launched}")
     new_tokens = sum(len(o) for o in outputs.values())
-    res = {"completed": len(outputs), "new_tokens": new_tokens,
+    res = {"reduced": reduced("mamba2-780m"),
+           "completed": len(outputs), "new_tokens": new_tokens,
            "decode_steps": stats["decode_steps"],
            "dispatches": stats["dispatches"], "wall_s": dt,
            "tokens_per_s": new_tokens / dt,
@@ -2234,7 +2310,7 @@ def phase_ssm_serve(dev):
            "p99_ttft_steps": stats["telemetry"]["ttft_steps"]["p99"],
            "mean_itl_steps": stats["telemetry"]["itl_steps"]["mean"],
            "profile": phase_profile(dev, "batch", cfg=cfg)}
-    f32 = mamba_cfg("float32", attn_impl="pallas")
+    f32 = mamba_cfg("float32", attn_impl="pallas", n_layers=cut)
     short = dict(trace, n_requests=SSM_TOKENS_REQUESTS)
     runs = {n: serve_model(dev, f32, dict(SSM_SERVE_ENGINE,
                                           max_fused_steps=n), short)
@@ -2762,8 +2838,8 @@ VM_BENCH_SERVING = ("prefix_sharing", "swap", "tiered", "retention",
 
 
 def phase_vm_bench(dev):
-    """benchmarks/vm_bench_torch.py at qwen3-0.6b's full width in f32: the
-    reference's serving workloads with their traffic unchanged, every
+    """benchmarks/vm_bench_torch.py at qwen3-0.6b's full width in f32, cut
+    to CUT_LAYERS's depth: the reference's serving workloads with their traffic unchanged, every
     assertion of the reference held except the dispatch wall criterion,
     which is reported (``wall_criterion``), and the sweep's exact m,
     held to 1e-5 against the composed step (K2 sums each q.k in its own
@@ -2778,10 +2854,11 @@ def phase_vm_bench(dev):
     from repro_torch.kernels.paged_decode import kernel as K
     K.reset_launch_counts()
     K67.reset_launch_counts()
-    _, record = vb.collect(device=dev, base="qwen3-0.6b")
+    cut = CUT_LAYERS["qwen3-0.6b"]
+    _, record = vb.collect(device=dev, base="qwen3-0.6b", n_layers=cut)
     launches = {**K.LAUNCHES, **K67.LAUNCHES}
     counts = record["kernel_launches"]
-    n_attn = attn_layers(full_cfg("float32"))
+    n_attn = attn_layers(full_cfg("float32", n_layers=cut))
     for sec in VM_BENCH_SERVING:
         c = counts[sec]
         want = n_attn * c["decode_steps"]
@@ -2799,7 +2876,8 @@ def phase_vm_bench(dev):
                  for sec, key, _ in vb._headline_items()}
     # prefix_index is host work whose query stream is numpy's Zipf
     # sampler: the numpy version stands beside its hit rate
-    return launches, {"base": "qwen3-0.6b", "dtype": "float32",
+    return launches, {"base": "qwen3-0.6b", "reduced": reduced("qwen3-0.6b"),
+                      "dtype": "float32",
                       "numpy": np.__version__, "headlines": headlines,
                       **record}
 
@@ -2810,10 +2888,12 @@ def phase_vm_bench(dev):
 #: in bf16, each cut in depth (layers run) only where one card's 80 GB
 #: cannot hold its weights: qwen2-72b 145 GB, mixtral-8x7b 93 GB,
 #: jamba-v0.1-52b 103 GB in full (ModelConfig.param_count, bf16); jamba's
-#: 8 layers are one whole period (1 attention + 7 Mamba2, MoE on 4)
+#: 8 layers are one whole period (1 attention + 7 Mamba2, MoE on 4);
+#: qwen2-vl-7b (15.2 GB) at full depth, its vision frontend a stub fed
+#: frame embeddings
 ARCHS_LAYERS = {"granite-3-2b": None, "h2o-danube-1.8b": None,
                 "qwen2-moe-a2.7b": None, "qwen2-72b": 8, "mixtral-8x7b": 8,
-                "jamba-v0.1-52b": 8}
+                "jamba-v0.1-52b": 8, "qwen2-vl-7b": None}
 #: the serve phase's trace settings at this many requests, drawn in each
 #: arch's vocabulary
 ARCHS_REQUESTS = 4
@@ -2821,10 +2901,81 @@ ARCHS_REQUESTS = 4
 #: spans frames of both emulated shards (the oracle's other order)
 ARCHS_TEACHER_STEPS, ARCHS_TEACHER_PAGE_SLOTS = 16, 4
 #: the archs whose prefill is held to its kernel's plain version: K3 at
-#: D 64 on the tensor cores (granite) and D 80 on the CUDA cores (danube),
-#: K5 at state 16 (jamba)
+#: D 64 on the tensor cores (granite), D 80 on the CUDA cores (danube) and
+#: D 128 at G 7 on the tensor cores from frame embeddings (qwen2-vl), K5
+#: at state 16 (jamba)
 ARCHS_PREFILL = {"granite-3-2b": "k3", "h2o-danube-1.8b": "k3",
-                 "jamba-v0.1-52b": "k5"}
+                 "jamba-v0.1-52b": "k5", "qwen2-vl-7b": "k3"}
+#: the archs whose K2 is timed at their own decode shape (G 7)
+ARCHS_K2_TIMED = ("qwen2-vl-7b",)
+
+
+def k2_timing(dev, cfg, err, copies=8):
+    """K2 at ``cfg``'s decode shape in bf16 (its KV heads, head group and
+    head dim; B 8 sequences of ragged lengths up to MAX_LP * PS over
+    scrambled tables of 16-slot pages, the page pool cycled over
+    ``copies`` sets, 8 x 17 MB at qwen2-vl's widths): (acc, m, l) held to
+    its plain version (ref.attend_shard) as PagedStepProbe holds them,
+    then its time beside the plain version's and the bytes bound (each
+    attended K/V row read once, q and the table entries read, (acc, m, l)
+    written)."""
+    import torch
+    from repro_torch.kernels.paged_decode import kernel as K
+    from repro_torch.kernels.paged_decode import ref
+    hkv, g, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+    rng = np.random.default_rng(91)
+    lengths = rng.integers(1, MAX_LP * PS + 1, B).astype(np.int32)
+    bt, fl, _ = mk_vm(rng, B, MAX_LP, PS, lengths, False)
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape).astype(np.float32),
+                            device=dev).to(torch.bfloat16)
+    pools = [(t(B * MAX_LP, PS, hkv, d), t(B * MAX_LP, PS, hkv, d))
+             for _ in range(copies)]
+    q = t(B, hkv * g, d)
+    qg = q.reshape(B, hkv, g, d)
+    btt, flt, lt = (torch.tensor(a, device=dev) for a in (bt, fl, lengths))
+    it = itertools.count()
+
+    def k2():
+        p = pools[next(it) % copies]
+        return K.paged_gather_attend(qg, p[0], p[1], btt, lt, (0, 1, 0))
+
+    def plain():
+        p = pools[next(it) % copies]
+        return ref.attend_shard(q, p[0], p[1], lt, btt, flt, sid=0,
+                                n_shards=1, head_start=0, group=g,
+                                window=None, max_pages=MAX_LP)
+    it = itertools.count()
+    got = k2()
+    it = itertools.count()
+    want = plain()
+    m = want[1].reshape(B, hkv, g, 1)
+    cond = max(1.0, m.abs().max().item())
+    acc = want[0].reshape(B, hkv, g, d)
+    for name, a, w, tol in (
+            ("acc", got[0], acc, (K2_ATOL + K2_RTOL * acc.abs().amax(
+                -1, keepdim=True)) * cond),
+            ("m", got[1], m, M_ATOL + K2_RTOL * cond),
+            ("l", got[2], want[2].reshape(B, hkv, g, 1),
+             (K2_ATOL + K2_RTOL * want[2].reshape(B, hkv, g, 1).abs())
+             * cond)):
+        dlt = (a - w).abs()
+        err[f"k2_{name}"] = max(err.get(f"k2_{name}", 0.0), dlt.max().item())
+        if not bool((dlt <= tol).all()):
+            raise AssertionError(f"K2 {name} at G {g}, D {d}: max |diff| "
+                                 f"{dlt.max().item()}")
+    k2_t, plain_t = timed(k2), timed(plain, iters=20)
+    attended = int(lengths.sum())
+    entries = int(sum(-(-int(n) // PS) for n in lengths))
+    nbytes = (2 * attended * hkv * d * 2 + B * hkv * g * d * 2 + 4 * entries
+              + 4 * B + B * hkv * g * (d + 2) * 4)
+    ops = 4 * g * d * hkv * attended
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
+    return {"shape": [B, hkv, g, MAX_LP * PS, d], "ms": k2_t["device_ms"],
+            "plain_ms": plain_t["device_ms"],
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def arch_cfg(arch: str):
@@ -2859,28 +3010,9 @@ def check_k3_real(q, k, v, causal, window, err):
                              f"{d.max().item()}")
 
 
-def k3_real_inputs(model, batch):
-    """The inputs K3 is given in one prefill of ``batch`` (copies): one
-    ((q, k, v), {"causal", "window"}) per attention layer."""
-    from repro_torch.kernels.flash_attention import kernel as K3
-    got, launch = [], K3.flash_attention
-
-    def capture(q, k, v, *, causal=True, window=None, scale=None,
-                variant=None):
-        got.append(((q.clone(), k.clone(), v.clone()),
-                    {"causal": causal, "window": window}))
-        return launch(q, k, v, causal=causal, window=window, scale=scale,
-                      variant=variant)
-    K3.flash_attention = capture
-    try:
-        model.prefill(batch, PREFILL_MAX_LEN)
-    finally:
-        K3.flash_attention = launch
-    return got
-
-
 def arch_prefill_k3(dev, model):
-    """bf16 prefill of 8 prompts of 511 tokens with K3 (attn_impl "pallas")
+    """bf16 prefill of 8 prompts of 511 tokens (of frame embeddings where
+    the arch has a frontend stub) with K3 (attn_impl "pallas")
     and with the plain oracle ("ref") on ``model``'s weights: K3 once per
     attention layer, on the variant ``variant_for`` gives its head dim;
     K3 on the real inputs of every attention layer against ref.mha within
@@ -2899,13 +3031,20 @@ def arch_prefill_k3(dev, model):
                               attn_impl="pallas")
     m = model.with_config(cfg)
     rng = np.random.default_rng(7)
-    toks = torch.tensor(rng.integers(0, cfg.vocab_size,
-                                     (PREFILL_B, PREFILL_S)), device=dev)
-    m.prefill({"tokens": toks[:, :16]}, PREFILL_MAX_LEN)       # warm up
+    if cfg.frontend is not None:
+        # the stub's input: frame embeddings in place of tokens
+        batch = {"embeds": torch.tensor(rng.standard_normal(
+            (PREFILL_B, PREFILL_S, cfg.d_model), dtype=np.float32),
+            device=dev).to(torch.bfloat16)}
+    else:
+        batch = {"tokens": torch.tensor(rng.integers(
+            0, cfg.vocab_size, (PREFILL_B, PREFILL_S)), device=dev)}
+    m.prefill({k: v[:, :16] for k, v in batch.items()},
+              PREFILL_MAX_LEN)                                 # warm up
     torch.cuda.synchronize()
     K3.reset_launch_counts()
     t0 = time.perf_counter()
-    logits, cache = m.prefill({"tokens": toks}, PREFILL_MAX_LEN)
+    logits, cache = m.prefill(batch, PREFILL_MAX_LEN)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(K3.LAUNCHES)
@@ -2917,8 +3056,7 @@ def arch_prefill_k3(dev, model):
         raise AssertionError(f"{cfg.name} prefill: K3 launches {launches} "
                              f"for {n_attn} attention layers ({variant})")
     dev_ms, by_name = device_profile(
-        lambda: m.prefill({"tokens": toks}, PREFILL_MAX_LEN), iters=2,
-        warmup=0)
+        lambda: m.prefill(batch, PREFILL_MAX_LEN), iters=2, warmup=0)
     vocab = cfg.vocab_size              # the padded columns hold -1e30
 
     def values(lg, c):
@@ -2928,8 +3066,8 @@ def arch_prefill_k3(dev, model):
     got = values(logits, cache)
     plain = {impl: values(*T.prefill(
         dataclasses.replace(cfg, attn_impl=impl, attn_chunk_q=128,
-                            attn_chunk_k=128), m.params, {"tokens": toks},
-        PREFILL_MAX_LEN, periods=m.periods()))
+                            attn_chunk_k=128), m.params, batch, PREFILL_MAX_LEN,
+        periods=m.periods()))
         for impl in ("ref", "chunked")}
     rel = {w: rel_err(got[w], plain["ref"][w]) for w in got}
     floor = {w: rel_err(plain["chunked"][w], plain["ref"][w]) for w in got}
@@ -2941,7 +3079,7 @@ def arch_prefill_k3(dev, model):
                                  f"vs plain {floor[what]})")
     del cache, logits, got, plain
     err = {"k3": 0.0, "k3_real": 0.0}
-    real = k3_real_inputs(m, {"tokens": toks})
+    real = k3_inputs(lambda: m.prefill(batch, PREFILL_MAX_LEN))
     for args, kw in real:
         check_k3_real(*args, kw["causal"], kw["window"], err)
     n_real = len(real)
@@ -2957,6 +3095,7 @@ def arch_prefill_k3(dev, model):
     del q, k, v
     return launches["flash_attention"], {
         "kernel": "K3", "variant": variant, "head_dim": cfg.hd,
+        "input": sorted(batch),
         "shape": [PREFILL_B, cfg.n_heads, cfg.n_kv_heads, PREFILL_S, cfg.hd],
         "k3_launches": launches, "k3_max_abs_err": err["k3"],
         "k3_real_inputs_max_abs_err": err["k3_real"],
@@ -3126,15 +3265,742 @@ def phase_arch(dev, arch: str):
         more, res["prefill"] = arch_prefill_k5(dev, model)
         launches.update(more)
     res["prefill_s"] = time.monotonic() - t
+    if arch in ARCHS_K2_TIMED:
+        res["k2_timing"] = k2_timing(dev, cfg, res.setdefault("k2_err", {}))
     del model
     torch.cuda.empty_cache()
     return launches, res
 
 
+# -- phase 17 ------------------------------------------------------------------
+
+#: phase encdec: seamless-m4t-medium at its published widths serving B 8
+#: sequences of S_src 512 frame embeddings (SyntheticLM's first batch at
+#: seed 0), 64 greedy decode steps from token 0 each
+ENCDEC_B, ENCDEC_SRC, ENCDEC_STEPS = 8, 512, 64
+#: K3 beyond the path: non-causal queries longer than the source (the
+#: teacher-forced decoder of a target longer than its source)
+ENCDEC_LONG_Q = 640
+
+
+def encdec_cfg(dtype: str, **kw):
+    """seamless-m4t-medium in ``dtype`` with the kernels (attn_impl
+    "pallas") unless ``kw`` says otherwise."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("seamless-m4t-medium"),
+                               **{"param_dtype": dtype, "compute_dtype": dtype,
+                                  "attn_impl": "pallas", **kw})
+
+
+def encdec_batch(cfg, dev):
+    """SyntheticLM(ENCDEC_B x ENCDEC_SRC, seed 0)'s first batch on ``dev``:
+    frame embeddings in the compute dtype, tokens, labels and mask."""
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLM
+    batch = SyntheticLM(cfg, DataConfig(ENCDEC_B, ENCDEC_SRC,
+                                        seed=0)).global_batch(0)
+    return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+
+class ReversedDecodeDots:
+    """While entered, the batch-layout decode attention's plain version
+    (``flash_ref.decode_attention``) sums each q.k over the head dim in
+    reverse order: the same arithmetic in another order."""
+
+    def __enter__(self):
+        from repro_torch.kernels.paged_decode import flash_ref
+        self.mod, self.fn = flash_ref, flash_ref.decode_attention
+
+        def reversed_dots(q, k, v, lengths, **kw):
+            rev = self.rev(q)
+            return self.fn(q[..., rev], k[..., rev], v, lengths, **kw)
+        flash_ref.decode_attention = reversed_dots
+        return self
+
+    @staticmethod
+    def rev(q):
+        import torch
+        return torch.arange(q.shape[-1] - 1, -1, -1, device=q.device)
+
+    def __exit__(self, *exc):
+        self.mod.decode_attention = self.fn
+
+
+def encdec_decode(model, embeds, steps, oracle=None, reordered=None,
+                  cross=None, top2=None):
+    """prepare_cross_cache, then ``steps`` greedy decode steps from token 0
+    (each step feeds back its argmax).  With ``oracle`` and ``reordered``
+    (the plain path, and the plain path summed in another order: run under
+    ReversedDecodeDots), each step also runs on those models from a copy
+    of the decode's self-attention cache as it stood before the step, on
+    the same token.  Returns (tokens [steps, B] on the host, {"oracle":
+    max |logit diff| of the decode against the oracle, "reordered": of the
+    reordered oracle against the oracle, and "oracle_argmax" /
+    "reordered_argmax": the (step, sequence) pairs whose argmax differs
+    from the oracle's}, max |logit| of the oracle).  ``cross`` gives the
+    cross-attention K/V (``xk``, ``xv``) in place of the model's own
+    encoder's; ``top2`` (a list) collects each step's two largest logits
+    per sequence [B, 2] on the host."""
+    import torch
+    b, dev = embeds.shape[0], embeds.device
+    vocab = model.cfg.vocab_size
+    cache = model.init_cache(b, steps, src_len=embeds.shape[1])
+    cache = (dict(cache, **cross) if cross is not None
+             else model.prepare_cross_cache(embeds, cache))
+    tok = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+    toks, scale = [], 0.0
+    diff = {"oracle": 0.0, "reordered": 0.0, "oracle_argmax": 0,
+            "reordered_argmax": 0}
+    for i in range(steps):
+        lengths = torch.full((b,), i + 1, dtype=torch.int32, device=dev)
+        copies = [dict(cache, k=cache["k"].clone(), v=cache["v"].clone())
+                  for _ in (oracle, reordered) if oracle is not None]
+        logits, cache = model.decode_step(tok, cache, lengths)
+        logits = logits[:, :vocab]
+        if oracle is not None:
+            want = oracle.decode_step(tok, copies[0], lengths)[0][:, :vocab]
+            with ReversedDecodeDots():
+                other = reordered.decode_step(tok, copies[1],
+                                              lengths)[0][:, :vocab]
+            scale = max(scale, want.abs().max().item())
+            top = want.argmax(-1)
+            for name, got in (("oracle", logits), ("reordered", other)):
+                diff[name] = max(diff[name], (got - want).abs().max().item())
+                diff[f"{name}_argmax"] += int((got.argmax(-1) != top).sum())
+        if top2 is not None:
+            top2.append(logits.topk(2, -1).values.cpu())
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        toks.append(tok[:, 0])
+    return torch.stack(toks).cpu(), diff, scale
+
+
+def k3_f64_errors(q, k, v, causal, window) -> dict:
+    """K3 and its plain version (ref.mha) on one input set, each
+    against the same attention in float64: the largest |error| of each,
+    the largest |scaled logit| (whose f32 rounding exp() turns into a
+    relative error of p), and ``ok``: K3 within the larger of phase 6's
+    tolerance at the output's scale and ORDER_FACTOR times the plain
+    version's own error."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.flash_attention import ref
+    b, hq, sq, d = q.shape
+    g = hq // k.shape[1]
+    q64 = q.double().reshape(b, k.shape[1], g, sq, d)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", q64, k.double()) * d ** -0.5
+    s = s.masked_fill(~ref.attention_mask(sq, k.shape[2], causal=causal,
+                                          window=window, device=q.device),
+                      -1e300)
+    want = torch.einsum("bhgqk,bhkd->bhgqd", torch.softmax(s, -1),
+                        v.double()).reshape(b, hq, sq, d)
+    got = K3.flash_attention(q, k, v, causal=causal, window=window)
+    plain = ref.mha(q, k, v, causal=causal, window=window)
+    e_k3 = (got.double() - want).abs().max().item()
+    e_plain = (plain.double() - want).abs().max().item()
+    lim = max(FLASH_ATOL + FLASH_RTOL["float32"] * want.abs().max().item(),
+              ORDER_FACTOR * e_plain)
+    return {"k3": e_k3, "plain": e_plain, "limit": lim,
+            "max_abs_logit": s.masked_fill(s < -1e299, 0).abs().max().item(),
+            "ok": e_k3 <= lim}
+
+
+def first_divergence(a, b) -> list:
+    """Per sequence, the first step whose token differs between the token
+    runs ``a`` and ``b`` [steps, B], or None."""
+    import torch
+    out = []
+    for j in range(a.shape[1]):
+        bad = (a[:, j] != b[:, j]).nonzero()
+        out.append(int(bad[0]) if len(bad) else None)
+    return out
+
+
+def encdec_lockstep(model, embeds, dtype: str) -> dict:
+    """The lockstep gate of phase archs for ``model`` (the kernels): each of
+    ENCDEC_STEPS steps against the plain path (attn_impl "ref") and the
+    plain path summed in another order (the cross-attention over 128-key
+    chunks, the self-attention's q.k in reverse) from the kernel decode's
+    cache before the step; the kernels' logits within the larger of
+    LOGIT_RTOL[dtype] and ORDER_FACTOR times the plain path's own
+    disagreement.  Returns the readings, with ``ok``."""
+    cfg = model.cfg
+    oracle = model.with_config(dataclasses.replace(cfg, attn_impl="ref"))
+    reordered = model.with_config(dataclasses.replace(
+        cfg, attn_impl="chunked", attn_chunk_q=128, attn_chunk_k=128))
+    _, diff, scale = encdec_decode(model, embeds, ENCDEC_STEPS, oracle,
+                                   reordered)
+    rel = {k: diff[k] / scale for k in ("oracle", "reordered")}
+    lim = max(LOGIT_RTOL[dtype], ORDER_FACTOR * rel["reordered"])
+    return {"rel": rel["oracle"], "limit": lim,
+            "reordered_rel": rel["reordered"], "max_abs_logit": scale,
+            "argmax_differ": diff["oracle_argmax"],
+            "reordered_argmax_differ": diff["reordered_argmax"],
+            "of": ENCDEC_STEPS * embeds.shape[0],
+            "ok": bool(np.isfinite(rel["oracle"]) and rel["oracle"] <= lim)}
+
+
+def k3_inputs(fn):
+    """The inputs K3 is given while ``fn()`` runs (copies): one ((q, k,
+    v), {"causal", "window"}) per launch."""
+    from repro_torch.kernels.flash_attention import kernel as K3
+    got, launch = [], K3.flash_attention
+
+    def capture(q, k, v, *, causal=True, window=None, scale=None,
+                variant=None):
+        got.append(((q.clone(), k.clone(), v.clone()),
+                    {"causal": causal, "window": window}))
+        return launch(q, k, v, causal=causal, window=window, scale=scale,
+                      variant=variant)
+    K3.flash_attention = capture
+    try:
+        fn()
+    finally:
+        K3.flash_attention = launch
+    return got
+
+
+def attention_timing(dev, q_shape, kv_shape, copies=8):
+    """K3 non-causal at one shape in bf16 (inputs cycled over ``copies``
+    sets, as every layer finds its K/V cold), its plain version ref.mha
+    and SDPA, and the least time: the bytes once at the memory rate or the
+    products at the bf16 tensor-core rate."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.flash_attention import ref
+    b, hq, sq, d = q_shape
+    hkv, skv = kv_shape[1], kv_shape[2]
+    xs = [fa_case(71 + i, torch.bfloat16, dev, b=b, hq=hq, hkv=hkv, sq=sq,
+                  skv=skv, d=d) for i in range(copies)]
+    it = itertools.count()
+
+    def pick():
+        return xs[next(it) % len(xs)]
+    out = {"k3": timed(lambda: K3.flash_attention(*pick(), causal=False)),
+           "plain": timed(lambda: ref.mha(*pick(), causal=False), iters=20),
+           "sdpa": timed(lambda: F.scaled_dot_product_attention(
+               *pick(), enable_gqa=hq != hkv))}
+    nbytes = (2 * b * hq * sq * d + 2 * b * hkv * skv * d) * 2
+    ops = 4 * d * sq * skv * b * hq
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
+    return {"shape": [b, hq, hkv, sq, skv, d],
+            "ms": out["k3"]["device_ms"], "plain_ms": out["plain"]["device_ms"],
+            "sdpa_ms": out["sdpa"]["device_ms"],
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "clocks": out}
+
+
+def k4_timing(dev, hkv, g, d, s, err):
+    """K4 at one decode shape in bf16 (B 8, ragged lengths, 16 input sets
+    cycled): held to its plain version (check_k4), then its time beside
+    the plain version's, SDPA's with a boolean mask and the bytes bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_decode import flash as K4
+    from repro_torch.kernels.paged_decode import flash_ops
+    fd = [fd_case(81 + i, torch.bfloat16, dev, g=g, d=d, s=s, hkv=hkv)
+          for i in range(16)]
+    check_k4(fd[0], None, err)
+    it = itertools.count()
+
+    def pick(xs):
+        return xs[next(it) % len(xs)]
+    qg = [(x[0].reshape(B, hkv, g, d), x[1], x[2], x[3]) for x in fd]
+    pos = torch.arange(s, device=dev)
+    lib = [(x[0][:, :, None], x[1], x[2],
+            (pos[None, :] < x[3][:, None].long())[:, None, None, :])
+           for x in fd]
+
+    def library():
+        q4, k4, v4, mask = pick(lib)
+        F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                       enable_gqa=g > 1)
+    k4 = timed(lambda: K4.flash_decode(*pick(qg)))
+    plain = timed(lambda: flash_ops.decode_attention_partial(
+        *pick(fd)[:4], use_kernel=False), iters=20)
+    lib_t = timed(library)
+    attended = int(np.minimum(fd[0][4], s).sum())
+    nbytes = (2 * attended * hkv * d * 2 + 2 * B * hkv * g * d * 2 + 4 * B
+              + 2 * B * hkv * g * 4)
+    ops = 4 * g * d * hkv * attended
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
+    return {"shape": [B, hkv, g, s, d], "ms": k4["device_ms"],
+            "plain_ms": plain["device_ms"], "sdpa_ms": lib_t["device_ms"],
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_encdec(dev):
+    """seamless-m4t-medium at its published widths (random weights from
+    seed 0) on SyntheticLM's frame embeddings (B 8, S_src 512, seed 0).
+
+    bf16, the counted path: prepare_cross_cache (the encoder: K3
+    non-causal, once a layer, on the tensor cores at D 64), then 64 greedy
+    decode steps from token 0, each decoder layer launching K1 with its
+    page write off (the rotary), K4 (self-attention, D 64, G 1) and K3
+    (cross-attention, Sq 1 against Skv 512): K3 12 + 12 x 64, K1 = K4 =
+    12 x 64.  Then the lockstep gate of phase archs: 64 steps of the
+    kernel decode, each also run by the plain path (attn_impl "ref") and
+    by the plain path summed in another order (cross-attention over
+    128-key chunks, the self-attention's q.k in reverse) from the kernel
+    decode's cache before the step; the kernels' logits within the larger
+    of LOGIT_RTOL and ORDER_FACTOR times the plain path's own disagreement.
+    K3 on every layer's real inputs (the encoder's and one step's cross-
+    attention at Sq 1) within check_k3_real's tolerance; K3 at Sq 640 >
+    Skv 512 non-causal (bf16 on both variants, f32) within phase 6's,
+    and a causal Sq > Skv refused; K1's rotary at base 1e4 against its
+    plain version, bit for bit reported.  f32: the kernel decoder's 64
+    greedy tokens equal the plain decoder's on one encoder output; the
+    lockstep gate; K3 on each encoder layer's real inputs within the
+    larger of phase 6's tolerance and ORDER_FACTOR times ref.mha's own
+    error, both against float64; K4 at the decode shape; ``lm_loss`` of
+    the batch with the kernels (no grad) against "chunked" within
+    max(1e-4, ORDER_FACTOR x "ref" against "chunked"), relative; the whole
+    paths' free-running tokens, where they part and the encoder outputs'
+    distance reported.  Every gate is read before the phase fails, and a
+    failing phase prints its line first.  Timings: a profiled bf16 decode
+    step against the read of its weights (and of its caches); K3 at Sq 1 /
+    Skv 512 / D 64 with SDPA's time; K4 at D 64 / G 1.  Returns ({kernel:
+    launches on the counted path}, results)."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.paged_decode import flash as K4
+    from repro_torch.kernels.paged_decode import kernel as K
+    from repro_torch.models import encdec as E
+    from repro_torch.models.model import Model
+    cfg = encdec_cfg("bfloat16")
+    model = Model(cfg, device=dev, seed=0)
+    batch = encdec_batch(cfg, dev)
+    embeds = batch["embeds"]
+    n = cfg.n_layers
+    res = {"model": cfg.name, "shape": {"batch": ENCDEC_B,
+                                        "src_len": ENCDEC_SRC,
+                                        "steps": ENCDEC_STEPS}}
+    # warm-up, then the encoder alone: K3 once per encoder layer
+    encdec_decode(model, embeds[:, :64], 2)
+    torch.cuda.synchronize()
+    # bf16 at D 64: the tensor cores
+    tc = K3.variant_for(torch.bfloat16, cfg.hd) == "tensor_core"
+    K3.reset_launch_counts()
+    model.encode(embeds)
+    if K3.LAUNCHES != {"flash_attention": cfg.n_encoder_layers,
+                       "flash_attention_tc": cfg.n_encoder_layers * tc}:
+        raise AssertionError(f"encode: K3 launches {K3.LAUNCHES}")
+    for mod in (K, K3, K4):
+        mod.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks_k, _, _ = encdec_decode(model, embeds, ENCDEC_STEPS)
+    torch.cuda.synchronize()
+    res["serve_s"] = time.perf_counter() - t0
+    launches = {"flash_attention": K3.LAUNCHES["flash_attention"],
+                "flash_decode": K4.LAUNCHES["flash_decode"],
+                "paged_kv_write": K.LAUNCHES["paged_kv_write"]}
+    want = {"flash_attention": cfg.n_encoder_layers + n * ENCDEC_STEPS,
+            "flash_decode": n * ENCDEC_STEPS,
+            "paged_kv_write": n * ENCDEC_STEPS}
+    if launches != want or K3.LAUNCHES["flash_attention_tc"] != want[
+            "flash_attention"] * tc or K.LAUNCHES["paged_gather_attend"]:
+        raise AssertionError(f"encdec launches {launches}, K3 tensor cores "
+                             f"{K3.LAUNCHES['flash_attention_tc']}, K2 "
+                             f"{K.LAUNCHES['paged_gather_attend']}; want "
+                             f"{want}")
+    res["launches"] = launches
+    res["decode_step_ms"] = res["serve_s"] / ENCDEC_STEPS * 1e3
+    failed = []
+    res["bf16_lockstep"] = encdec_lockstep(model, embeds, "bfloat16")
+    if not res["bf16_lockstep"]["ok"]:
+        failed.append("bf16 lockstep logits")
+    # K3 on real inputs: the encoder's layers, and one step's cross-attention
+    err = {"k3": 0.0, "k3_real": 0.0, "k4": 0.0}
+    cache = model.prepare_cross_cache(embeds, model.init_cache(
+        ENCDEC_B, ENCDEC_STEPS, src_len=ENCDEC_SRC))
+    tok = toks_k[0].to(dev, torch.int32)[:, None]
+    lengths = torch.ones(ENCDEC_B, dtype=torch.int32, device=dev)
+    real = k3_inputs(lambda: model.encode(embeds)) + k3_inputs(
+        lambda: model.decode_step(tok, cache, lengths))
+    for args, kw in real:
+        check_k3_real(*args, kw["causal"], kw["window"], err)
+    # beside the gate: K3 and ref.mha each against float64 on these inputs
+    f64 = [k3_f64_errors(*args, **kw) for args, kw in real]
+    res["k3_real_inputs"] = {
+        "launches": len(real), "max_abs_err": err["k3_real"],
+        "shapes": sorted({str(list(a[0].shape)) for a, _ in real}),
+        "vs_float64": {"k3": max(r["k3"] for r in f64),
+                       "plain": max(r["plain"] for r in f64),
+                       "max_abs_logit": max(r["max_abs_logit"]
+                                            for r in f64)}}
+    del real, f64
+    # K3 with queries past the source: both variants, and f32
+    for dt, variant in ((torch.bfloat16, None), (torch.bfloat16, "cuda_core"),
+                        (torch.float32, None)):
+        q, k, v = fa_case(73, dt, dev, b=2, hq=cfg.n_heads,
+                          hkv=cfg.n_kv_heads, sq=ENCDEC_LONG_Q,
+                          skv=ENCDEC_SRC, d=cfg.hd)
+        check_k3(q, k, v, False, None, err, variant=variant)
+    try:
+        K3.flash_attention(q, k, v, causal=True)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("K3 took a causal Sq > Skv")
+    res["k3_long_q"] = {"sq": ENCDEC_LONG_Q, "skv": ENCDEC_SRC,
+                        "max_abs_err": err["k3"]}
+    # where a bf16 decode step's time goes, against the read of its weights
+    step_len = torch.full((ENCDEC_B,), ENCDEC_STEPS // 2, dtype=torch.int32,
+                          device=dev)
+
+    def step():
+        model.decode_step(tok, cache, step_len)
+    t = timed(step, iters=20)
+    dev_ms, by_name = device_profile(step, iters=10)
+    weight_bytes = sum(p.numel() * p.element_size() for p in (
+        *model.params["dec"].parameters(), model.params["embed"]["head"],
+        model.params["ln_f"]["w"]))
+    cache_bytes = sum(cache[name][:, :, :, :ENCDEC_STEPS // 2].numel() * 2
+                      for name in ("k", "v")) + sum(
+        cache[name].numel() * 2 for name in ("xk", "xv"))
+    res["profile"] = {
+        "device_ms_per_step": t["device_ms"], "clock": t["clock"],
+        "profiler_ms_per_step": dev_ms,
+        "device_ops_per_step": by_name.get("device_ops_per_call"),
+        "kernel_ms_per_step": {
+            name: sum(v for k, v in by_name.items()
+                      if any(sym in k for sym in syms))
+            for name, syms in KERNEL_SYMBOLS.items()},
+        "weight_bytes": weight_bytes,
+        "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+        "cache_bytes": cache_bytes,
+        "bytes_bound_ms": (weight_bytes + cache_bytes) / HBM_BYTES_PER_S
+        * 1e3}
+    del cache
+    res["k3_sq1"] = attention_timing(
+        dev, (ENCDEC_B, cfg.n_heads, 1, cfg.hd),
+        (ENCDEC_B, cfg.n_kv_heads, ENCDEC_SRC, cfg.hd))
+    res["k4_d64_g1"] = k4_timing(dev, cfg.n_kv_heads,
+                                 cfg.n_heads // cfg.n_kv_heads, cfg.hd,
+                                 ENCDEC_STEPS, err)
+    # K1's rotary at seamless's base (1e4) and head dim, no q/k norm: bit
+    # for bit with its plain version, as phase kernels holds it at 1e6
+    from repro_torch.kernels.paged_decode import ref as pd_ref
+    rng = np.random.default_rng(75)
+    res["k1_rotary_bits_equal"] = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q1, k1 = (torch.tensor(rng.normal(size=(ENCDEC_B, h, cfg.hd)).astype(
+            np.float32), device=dev).to(dt) for h in (cfg.n_heads,
+                                                      cfg.n_kv_heads))
+        ln = torch.tensor(rng.integers(1, 4096, ENCDEC_B), dtype=torch.int32,
+                          device=dev)
+        got = K.qk_rotate(q1, k1, ln, rope_theta=cfg.rope_theta)
+        want = pd_ref.qk_rotate(q1, k1, ln, rope_theta=cfg.rope_theta)
+        res["k1_rotary_bits_equal"][str(dt).split(".")[1]] = all(
+            bool(torch.equal(bits(a), bits(w))) for a, w in zip(got, want))
+    res["max_abs_err"] = err
+    del model
+    torch.cuda.empty_cache()
+    # f32: greedy tokens free-running (the kernels, the plain path and the
+    # plain path reordered), the lockstep gate, K4 and K1 at the decode
+    # shapes, and lm_loss with the kernels
+    cfg32 = encdec_cfg("float32")
+    m32 = Model(cfg32, device=dev, seed=0)
+    b32 = encdec_batch(cfg32, dev)
+    plain = m32.with_config(dataclasses.replace(cfg32, attn_impl="ref"))
+    reordered = m32.with_config(dataclasses.replace(
+        cfg32, attn_impl="chunked", attn_chunk_q=128, attn_chunk_k=128))
+    top_k, top_p = [], []
+    toks, _, _ = encdec_decode(m32, b32["embeds"], ENCDEC_STEPS, top2=top_k)
+    toks_p, _, _ = encdec_decode(plain, b32["embeds"], ENCDEC_STEPS,
+                                 top2=top_p)
+    with ReversedDecodeDots():
+        toks_r, _, _ = encdec_decode(reordered, b32["embeds"], ENCDEC_STEPS)
+    div = first_divergence(toks, toks_p)
+    # each path's gap between its two largest logits where it parts
+    gaps = [None if i is None else
+            [float(t[i][j, 0] - t[i][j, 1]) for t in (top_k, top_p)]
+            for j, i in enumerate(div)]
+    # which half parts them: the plain decoder on the kernels' encoder
+    # output, and the kernels' decoder on the plain encoder's
+    with torch.no_grad():
+        cross_k = m32.prepare_cross_cache(b32["embeds"], m32.init_cache(
+            ENCDEC_B, 1, src_len=ENCDEC_SRC))
+        cross_p = plain.prepare_cross_cache(b32["embeds"], plain.init_cache(
+            ENCDEC_B, 1, src_len=ENCDEC_SRC))
+        cross_r = reordered.prepare_cross_cache(
+            b32["embeds"], plain.init_cache(ENCDEC_B, 1, src_len=ENCDEC_SRC))
+    toks_pk, _, _ = encdec_decode(plain, b32["embeds"], ENCDEC_STEPS,
+                                  cross={n: cross_k[n] for n in ("xk", "xv")})
+    toks_kp, _, _ = encdec_decode(m32, b32["embeds"], ENCDEC_STEPS,
+                                  cross={n: cross_p[n] for n in ("xk", "xv")})
+    lock = encdec_lockstep(m32, b32["embeds"], "float32")
+    f32 = {"tokens_identical": bool(torch.equal(toks, toks_p)),
+           "first_divergence": div, "top2_gap_at_divergence": gaps,
+           "cross_rel": {n: rel_err(cross_k[n], cross_p[n])
+                         for n in ("xk", "xv")},
+           "cross_rel_plain_reordered": {n: rel_err(cross_r[n], cross_p[n])
+                                         for n in ("xk", "xv")},
+           "plain_on_kernel_encoder_first_divergence": first_divergence(
+               toks_pk, toks_p),
+           "kernel_on_plain_encoder_identical": bool(torch.equal(toks_kp,
+                                                                 toks_p)),
+           "plain_reordered_identical": bool(torch.equal(toks_r, toks_p)),
+           "plain_reordered_first_divergence": first_divergence(toks_r,
+                                                                toks_p),
+           "lockstep": lock}
+    del cross_k, cross_p, cross_r
+    # K3 (the CUDA cores in f32) on the f32 encoder's real inputs, against
+    # float64 beside its plain version's error
+    real = k3_inputs(lambda: m32.encode(b32["embeds"]))
+    f32["k3_real_f64"] = [k3_f64_errors(*args, **kw) for args, kw in real]
+    del real
+    if not all(r["ok"] for r in f32["k3_real_f64"]):
+        failed.append("f32 K3 on the encoder's real inputs")
+    err32 = {"k4": 0.0}
+    res["f32"] = f32
+    # the greedy tokens: the kernel decoder's equal the plain decoder's on
+    # one encoder output.  The whole paths' are reported: their encoders'
+    # outputs part by ~1e-4 after 12 random-weight layers whose scaled
+    # logits reach ~500 (K3 lies closer to float64 there than ref.mha,
+    # k3_real_f64), and a decode fed either output parts from the other at
+    # a near-tie some dozens of steps on
+    if not f32["kernel_on_plain_encoder_identical"]:
+        failed.append("f32 greedy tokens")
+    if not f32["lockstep"]["ok"]:
+        failed.append("f32 lockstep logits")
+    for seed in (83, 84):
+        check_k4(fd_case(seed, torch.float32, dev, g=1, d=cfg.hd,
+                         s=ENCDEC_STEPS, hkv=cfg.n_kv_heads), None, err32)
+    f32["k4_max_abs_err"] = err32["k4"]
+    K3.reset_launch_counts()
+    loss = {}
+    with torch.no_grad():
+        for impl in ("pallas", "chunked", "ref"):
+            loss[impl] = E.lm_loss(dataclasses.replace(cfg32, attn_impl=impl),
+                                   m32.params, b32, m32.periods()).item()
+    if K3.LAUNCHES["flash_attention"] != cfg.n_encoder_layers + 2 * n:
+        raise AssertionError(f"lm_loss: K3 launches {K3.LAUNCHES}")
+    rel_loss = abs(loss["pallas"] - loss["chunked"]) / abs(loss["chunked"])
+    floor = abs(loss["ref"] - loss["chunked"]) / abs(loss["chunked"])
+    lim = max(1e-4, ORDER_FACTOR * floor)
+    f32.update(lm_loss=loss, lm_loss_rel=rel_loss, lm_loss_limit=lim)
+    if not np.isfinite(rel_loss) or rel_loss > lim:
+        failed.append("f32 lm_loss")
+    del m32, plain, reordered, b32
+    torch.cuda.empty_cache()
+    if failed:
+        emit({"phase": "encdec", "failed": failed, **res})
+        raise AssertionError(f"phase encdec failed: {failed}")
+    return launches, res
+
+
+# -- phase 18 ------------------------------------------------------------------
+
+#: phase train: qwen3-0.6b at full width, bf16 parameters with f32
+#: masters, remat "block", SyntheticLM(8 x 512, seed 0),
+#: warmup_cosine(3e-3, 5, 10) over 10 steps, a checkpoint at step 5
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_SAVE_AT = 8, 512, 10, 5
+#: step 1 with 2 microbatches against 1, relative: the rows' arithmetic is
+#: the same but for the matmuls' tiling over half the rows, and the
+#: gradient sums round each half's bf16 gradient before the f32 sum
+TRAIN_MICRO_RTOL = {"loss": 1e-2, "grad_norm": 2e-2}
+#: seamless-m4t-medium's two steps: B 4 x S 256 on one batch
+TRAIN_ENCDEC_B, TRAIN_ENCDEC_S = 4, 256
+
+
+def train_cfg(arch: str, **kw):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), **{
+        "param_dtype": "bfloat16", "compute_dtype": "bfloat16",
+        "remat": "block", **kw})
+
+
+def trainer_for(cfg, dev, microbatches: int = 1, seed: int = 0):
+    """A Trainer of ``cfg`` on ``dev`` with the phase's schedule, and its
+    initial (params, opt) from ``seed``."""
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig, schedules
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    trainer = Trainer(Model(cfg, device=dev, seed=seed), AdamWConfig(
+        lr=schedules.warmup_cosine(3e-3, 5, TRAIN_STEPS)),
+        TrainConfig(microbatches=microbatches))
+    return (trainer, *trainer.init_state(seed))
+
+
+def grad_guard_raises(model, batch) -> list[str]:
+    """The loss of ``model`` (parameters requiring grad) under attn_impl
+    "pallas" raises at the kernel's grad guard before any launch; returns
+    the guard's messages."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.mamba2_ssd import kernel as K5
+    m = model.with_config(dataclasses.replace(model.cfg, attn_impl="pallas"))
+    before = {**K3.LAUNCHES, **K5.LAUNCHES}
+    try:
+        with torch.enable_grad():
+            m.loss(batch)
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        msg = str(e)
+    else:
+        raise AssertionError(f"{model.cfg.name}: a loss through the kernels "
+                             "took gradients")
+    if {**K3.LAUNCHES, **K5.LAUNCHES} != before:
+        raise AssertionError("the grad guard let a kernel launch")
+    return msg
+
+
+def phase_train(dev):
+    """Training on one card through the plain paths (attn_impl "chunked",
+    no kernel launch), torch's deterministic algorithms on: qwen3-0.6b 10
+    steps (the loss falls; a checkpoint at step 5 written by the async
+    saver, restored into a fresh Trainer from the files, and steps 6-10
+    run again bit for bit equal to the uninterrupted run: losses, grad
+    norms and every parameter); step 1 with 2 microbatches against 1
+    within TRAIN_MICRO_RTOL; two steps of seamless-m4t-medium's lm_loss at
+    full width (B 4 x S 256, one batch twice) with finite gradients and a
+    falling loss; the kernels' grad guard raising for K3 (qwen3's
+    attention) and K5 (one mamba2-780m layer).  Reports step ms, tokens/s,
+    the step's share of its compute bound (6 x parameters x tokens at the
+    bf16 tensor-core rate) and peak memory."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.mamba2_ssd import kernel as K5
+    from repro_torch.models.model import Model
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.tree import flatten
+    det = torch.are_deterministic_algorithms_enabled()
+    # the embedding's backward accumulates by index: sorted, not atomics
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="train_ckpt_",
+                                dir=os.path.join(ROOT, "build"))
+    res = {}
+    try:
+        K3.reset_launch_counts()
+        K5.reset_launch_counts()
+        cfg = train_cfg("qwen3-0.6b")
+        data = SyntheticLM(cfg, DataConfig(TRAIN_B, TRAIN_S, seed=0))
+        trainer, params, opt = trainer_for(cfg, dev)
+        ckpt = CheckpointManager(ckpt_dir)
+        torch.cuda.reset_peak_memory_stats(dev)
+        save = [lambda step, p, o, m: ckpt.save(step, {"params": p, "opt": o})
+                if step == TRAIN_SAVE_AT else None]
+        params, opt, hist = trainer.run(params, opt, iter(data), TRAIN_STEPS,
+                                        save)
+        peak = torch.cuda.max_memory_allocated(dev)
+        ckpt.wait()
+        first, last = hist[0]["loss"], hist[-1]["loss"]
+        if not all(np.isfinite([h["loss"] for h in hist])) or last >= first:
+            raise AssertionError(f"qwen3 training loss {first} -> {last}")
+        final = {k: v.detach().clone() for k, v in flatten(params).items()}
+        n_params = trainer.model.param_count()
+        del trainer, params, opt
+        torch.cuda.empty_cache()
+        # resume from the files into a fresh Trainer (other weights first)
+        trainer, params, opt = trainer_for(cfg, dev, seed=1)
+        params, opt, step = trainer.restore(CheckpointManager(ckpt_dir),
+                                            TRAIN_SAVE_AT)
+        params, opt, again = trainer.run(params, opt,
+                                         data.iter_from(TRAIN_SAVE_AT),
+                                         TRAIN_STEPS - TRAIN_SAVE_AT)
+        same = [a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+                and a["step"] == b["step"]
+                for a, b in zip(hist[TRAIN_SAVE_AT:], again)]
+        leaves_equal = all(torch.equal(final[k], v)
+                           for k, v in flatten(params).items())
+        if not (all(same) and leaves_equal):
+            raise AssertionError(
+                f"resumed run differs from the uninterrupted one: steps "
+                f"equal {same}, parameters equal {leaves_equal}")
+        del trainer, params, opt, final
+        torch.cuda.empty_cache()
+        # microbatches: step 1 of 2 halves against the whole batch
+        trainer, params, opt = trainer_for(cfg, dev, microbatches=2)
+        _, _, micro = trainer.run(params, opt, iter(data), 1)
+        rel_micro = {k: abs(micro[0][k] - hist[0][k]) / abs(hist[0][k])
+                     for k in TRAIN_MICRO_RTOL}
+        if any(not np.isfinite(r) or r > TRAIN_MICRO_RTOL[k]
+               for k, r in rel_micro.items()):
+            raise AssertionError(f"2 microbatches vs 1: {rel_micro} > "
+                                 f"{TRAIN_MICRO_RTOL}")
+        # where a step's time goes (one more step of this trainer)
+        one = data.global_batch(1)
+        prof_ms, by_name = device_profile(
+            lambda: trainer.run(params, opt, iter([one]), 1), iters=1,
+            warmup=0)
+        top = sorted(((k, v) for k, v in by_name.items()
+                      if k != "device_ops_per_call"), key=lambda kv: -kv[1])
+        small = {k: torch.as_tensor(v[:1, :64]).to(dev)
+                 for k, v in data.global_batch(0).items()}
+        guard = {"k3": grad_guard_raises(trainer.model, small)}
+        del trainer, params, opt
+        torch.cuda.empty_cache()
+        steps_ms = [h["step_time_s"] * 1e3 for h in hist[1:]]
+        step_ms = float(np.median(steps_ms))
+        bound_ms = 6 * n_params * TRAIN_B * TRAIN_S / BF16_FLOPS_PER_S * 1e3
+        res["qwen3"] = {
+            "steps": TRAIN_STEPS, "batch": [TRAIN_B, TRAIN_S],
+            "loss": [h["loss"] for h in hist],
+            "grad_norm": [h["grad_norm"] for h in hist],
+            "lr": [h["lr"] for h in hist], "first_loss": first,
+            "last_loss": last, "improved": last < first,
+            "resumed_equal_bits": True, "resumed_from": step,
+            "micro2_rel": rel_micro, "micro2_rtol": TRAIN_MICRO_RTOL,
+            "step_ms_median": step_ms, "step_ms": steps_ms,
+            "first_step_ms": hist[0]["step_time_s"] * 1e3,
+            "tokens_per_s": TRAIN_B * TRAIN_S / step_ms * 1e3,
+            "params": n_params, "compute_bound_ms": bound_ms,
+            "bound_share": bound_ms / step_ms,
+            "peak_memory_bytes": peak,
+            "profiled_step": {"device_ms": prof_ms,
+                              "device_ops": by_name.get("device_ops_per_call"),
+                              "top_kernels_ms": [[k[:80], v]
+                                                 for k, v in top[:8]]}}
+        # seamless: two steps of the enc-dec lm_loss on one batch
+        ecfg = train_cfg("seamless-m4t-medium")
+        batch = SyntheticLM(ecfg, DataConfig(TRAIN_ENCDEC_B, TRAIN_ENCDEC_S,
+                                             seed=0)).global_batch(0)
+        trainer, params, opt = trainer_for(ecfg, dev)
+        _, _, ehist = trainer.run(params, opt, iter([batch, batch]), 2)
+        losses = [h["loss"] for h in ehist]
+        norms = [h["grad_norm"] for h in ehist]
+        if not (np.isfinite(losses + norms).all() and losses[1] < losses[0]):
+            raise AssertionError(f"seamless training: losses {losses}, grad "
+                                 f"norms {norms}")
+        res["seamless"] = {"batch": [TRAIN_ENCDEC_B, TRAIN_ENCDEC_S],
+                           "loss": losses, "grad_norm": norms,
+                           "step_ms": [h["step_time_s"] * 1e3
+                                       for h in ehist]}
+        del trainer, params, opt
+        torch.cuda.empty_cache()
+        # K5's guard: one mamba2-780m layer
+        mcfg = train_cfg("mamba2-780m", n_layers=1)
+        m = Model(mcfg, device=dev, seed=0)
+        m.params.requires_grad_(True)
+        mb = {k: torch.as_tensor(v).to(dev) for k, v in SyntheticLM(
+            mcfg, DataConfig(1, 128, seed=0)).global_batch(0).items()}
+        guard["k5"] = grad_guard_raises(m, mb)
+        del m
+        res["grad_guard"] = guard
+        launched = {**K3.LAUNCHES, **K5.LAUNCHES}
+        if any(launched.values()):
+            raise AssertionError(f"training launched kernels: {launched}")
+    finally:
+        torch.use_deterministic_algorithms(det)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return res
+
+
 # -- main -----------------------------------------------------------------------
 
 PHASES = ("build,kernels,teacher,profile,serve,tokens,flash,prefill,batch,"
-          "ssd,ssm_prefill,ssm_serve,gather,emem,vm,vm_bench,archs")
+          "ssd,ssm_prefill,ssm_serve,gather,emem,vm,vm_bench,archs,encdec,"
+          "train")
 #: the kernels' libraries, sources and the TPU kernels they replace
 KERNELS = (
     ("paged_kv_write", "k1", "src/repro_torch/kernels/paged_decode/csrc/"
@@ -3176,8 +4042,19 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=PHASES,
                     help="comma-separated subset of the phases to run "
                          "(build always runs)")
+    ap.add_argument("--archs", default=",".join(ARCHS_LAYERS),
+                    help="comma-separated subset of phase archs' archs")
+    ap.add_argument("--log", default=None,
+                    help="also append every JSON line to this file")
     args = ap.parse_args(argv)
+    global LOG_PATH
+    LOG_PATH = args.log
+    if LOG_PATH:
+        os.makedirs(os.path.dirname(os.path.abspath(LOG_PATH)), exist_ok=True)
     phases = set(args.phases.split(","))
+    # deterministic cuBLAS for phase train's bit-equal resume; set before
+    # torch first loads cuBLAS
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3282,7 +4159,7 @@ def main(argv=None) -> int:
               "launches": bench_launches, **res})
     if "archs" in phases:
         failed = []
-        for arch in ARCHS_LAYERS:
+        for arch in args.archs.split(","):
             # each arch runs even when one before it failed; the phase
             # fails after the last
             t = time.monotonic()
@@ -3300,6 +4177,14 @@ def main(argv=None) -> int:
             emit({"phase": "archs", "seconds": time.monotonic() - t, **res})
         if failed:
             raise AssertionError(f"phase archs failed for {failed}")
+    if "encdec" in phases:
+        t = time.monotonic()
+        enc_launches, res = phase_encdec(dev)
+        for name, n in enc_launches.items():
+            launches[name] += n
+        emit({"phase": "encdec", "seconds": time.monotonic() - t, **res})
+    if "train" in phases:
+        run("train", phase_train, dev)
 
     def ms(key):
         # the device time of timed(); the event-timed loop where neither

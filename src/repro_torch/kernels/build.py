@@ -101,6 +101,24 @@ def dtype_code(t: torch.Tensor, what: str) -> int:
     raise TypeError(f"{what}: unsupported dtype {t.dtype}")
 
 
+def check_no_grad(what: str, **tensors) -> None:
+    """Raise when autograd is recording and an input of kernel ``what``
+    requires grad.  The kernels are bound with ctypes, so their outputs
+    carry no ``grad_fn``: a loss through one would train with its
+    gradients quietly missing.  As the reference trains through its plain
+    paths (its Pallas calls have no VJP), training runs the port's plain
+    paths ("chunked" attention, the SSM's chunked scan)."""
+    if not torch.is_grad_enabled():
+        return
+    names = [n for n, t in tensors.items()
+             if isinstance(t, torch.Tensor) and t.requires_grad]
+    if names:
+        raise RuntimeError(
+            f"{what}: {', '.join(names)} require grad, but the CUDA kernel "
+            "has no backward; take gradients through the plain path "
+            "(attn_impl='chunked') or call it under torch.no_grad()")
+
+
 def check_cuda(**tensors) -> torch.device:
     """All tensors contiguous and on one CUDA device, which is returned; a
     CPU tensor raises (a CUDA kernel has no interpret mode)."""

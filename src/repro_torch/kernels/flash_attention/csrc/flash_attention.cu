@@ -61,10 +61,14 @@
 // body relies on the next tile's rescale by 0 to wipe it).  A row that
 // attends nothing ends with l = 0 and is written as 0 (the l == 0 guard).
 // Any Sq <= Skv is taken; the tiles' ragged ends are masked (rows past Skv
-// are zero-filled).  Output is in q's dtype.
+// are zero-filled).  Without causality or a window any Sq is taken, Sq >
+// Skv too (cross-attention to a shorter source): the query positions,
+// negative then, are read by neither mask, every query walks [0, Skv), and
+// a tile is an edge only where it runs past Skv.  Output is in q's dtype.
 //
 // The C entry returns cudaErrorInvalidValue for a shape the asked variant
-// does not take (Hq not a multiple of Hkv, Sq > Skv; the CUDA-core variant:
+// does not take (Hq not a multiple of Hkv, Sq > Skv when causal or
+// windowed; the CUDA-core variant:
 // D not a multiple of 4 or above 256, pointers not aligned to 4 elements;
 // the tensor-core variant: not bf16, D not 64 or 128, K/V not aligned to
 // 16 bytes or q/out to 4) and otherwise cudaGetLastError().
@@ -496,7 +500,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int Skv, int D, int causal, int window,
                                float scale, int dtype, int variant,
                                void* stream) {
-  if (Hkv < 1 || Hq % Hkv || Sq > Skv) return (int)cudaErrorInvalidValue;
+  if (Hkv < 1 || Hq % Hkv || (Sq > Skv && (causal || window > 0)))
+    return (int)cudaErrorInvalidValue;
   const uintptr_t qo = reinterpret_cast<uintptr_t>(q) |
                        reinterpret_cast<uintptr_t>(out);
   const uintptr_t kv = reinterpret_cast<uintptr_t>(k) |

@@ -64,10 +64,14 @@ def variant_for(dtype: torch.dtype, d: int, aligned: bool = True) -> str:
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None, scale: float | None = None,
                     variant: str | None = None):
-    """q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D] (Hq % Hkv == 0, Sq <= Skv,
-    one dtype, contiguous CUDA tensors) -> [B, Hq, Sq, D] in q's dtype.
+    """q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D] (Hq % Hkv == 0, one dtype,
+    contiguous CUDA tensors) -> [B, Hq, Sq, D] in q's dtype.  Sq <= Skv
+    unless ``causal`` is off and there is no window: the queries sit at the
+    tail of the KV sequence, which a causal or windowed mask reads and a
+    full one does not (Sq > Skv: cross-attention to a shorter source).
     ``variant``: None picks :func:`variant_for`'s; naming one launches that
     one or raises."""
+    _build.check_no_grad("flash_attention", q=q, k=k, v=v)
     dev = _build.check_cuda(q=q, k=k, v=v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q must be [B, Hq, Sq, D] and k, v [B, Hkv, Skv, D], "
@@ -75,10 +79,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
                          f"{tuple(v.shape)}")
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    if k.shape[0] != b or k.shape[3] != d or hq % max(hkv, 1) or sq > skv:
+    masked = causal or window is not None
+    if k.shape[0] != b or k.shape[3] != d or hq % max(hkv, 1) \
+            or (masked and sq > skv):
         raise ValueError(f"q {tuple(q.shape)} does not fit k/v "
                          f"{tuple(k.shape)}: needs one batch and head dim, "
-                         "Hq % Hkv == 0 and Sq <= Skv")
+                         "Hq % Hkv == 0 and, causal or windowed, Sq <= Skv")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share a dtype, got {q.dtype}, "
                          f"{k.dtype}, {v.dtype}")

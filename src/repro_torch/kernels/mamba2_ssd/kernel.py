@@ -72,6 +72,7 @@ def ssd(x, dt, A, B, C, D, *, chunk: int, variant: str | None = None):
     Returns (y [Bt, S, H, P] in x's dtype, final state [Bt, H, N, P] f32).
     ``variant``: None picks :func:`variant_for`'s; naming one launches that
     one or raises."""
+    _build.check_no_grad("ssd", x=x, dt=dt, A=A, B=B, C=C, D=D)
     dev = _build.check_cuda(x=x, dt=dt, A=A, B=B, C=C, D=D)
     if x.dim() != 4 or B.dim() != 4 or B.shape != C.shape:
         raise ValueError(f"x must be [Bt, S, H, P] and B, C [Bt, S, G, N], "

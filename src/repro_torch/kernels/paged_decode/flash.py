@@ -57,6 +57,7 @@ def flash_decode(q, k, v, lengths, *, scale: float | None = None,
     contiguous CUDA tensors).  Returns (out [B, Hkv, G, D] in q's dtype,
     normalised by the local l; m [B, Hkv, G, 1] f32; l [B, Hkv, G, 1]
     f32)."""
+    _build.check_no_grad("flash_decode", q=q, k=k, v=v)
     dev = _build.check_cuda(q=q, k=k, v=v, lengths=lengths)
     b, hkv, g, d = q.shape
     if k.dim() != 4 or tuple(k.shape[:2]) != (b, hkv) or k.shape[3] != d \

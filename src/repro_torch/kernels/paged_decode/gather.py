@@ -44,6 +44,7 @@ def _bind(lib) -> None:
 
 
 def _check(pages, index, what):
+    _build.check_no_grad(what, pages=pages)
     dev = _build.check_cuda(pages=pages, **{what: index})
     if pages.dim() != 3:
         raise ValueError(f"pages must be [n_pages, page_slots, width], got "

@@ -139,6 +139,7 @@ def paged_kv_write(k_new, v_new, k_pages, v_pages, block_table, lengths,
     block_table: int32 [B, max_lpages] GLOBAL frame ids; lengths: int32 [B]
     including the new token; frame_ro: bool [n_frames]; write_mask: bool
     [B]; meta: (sid, n_shards, kv_start).  Returns (k_pages, v_pages)."""
+    _build.check_no_grad("paged_kv_write", k_new=k_new, v_new=v_new)
     dev = _build.check_cuda(k_new=k_new, v_new=v_new, k_pages=k_pages,
                       v_pages=v_pages, block_table=block_table,
                       lengths=lengths, frame_ro=frame_ro,
@@ -217,6 +218,8 @@ def paged_qkv_write(q, k, v, k_pages, v_pages, block_table, lengths,
     :func:`paged_kv_write`.  Norms and rotates q and k at position
     ``lengths - 1``, writes the rotated k and v as K1 does, and returns the
     normed, rotated q [B, Hq, D] in the compute dtype."""
+    _build.check_no_grad("paged_qkv_write", q=q, k=k, v=v, q_norm=q_norm,
+                         k_norm=k_norm)
     dev = _build.check_cuda(
         q=q, k=k, v=v, k_pages=k_pages, v_pages=v_pages,
         block_table=block_table, lengths=lengths, frame_ro=frame_ro,
@@ -239,6 +242,7 @@ def qk_rotate(q, k, lengths, *, q_norm=None, k_norm=None, eps=1e-6,
     """K1 with its page write off: the norm and rotary of
     :func:`paged_qkv_write` alone.  Returns (q, k) normed and rotated,
     [B, Hq, D] and [B, Hkv, D] in the compute dtype."""
+    _build.check_no_grad("qk_rotate", q=q, k=k, q_norm=q_norm, k_norm=k_norm)
     dev = _build.check_cuda(
         q=q, k=k, lengths=lengths,
         **{n: w for n, w in (("q_norm", q_norm), ("k_norm", k_norm))
@@ -259,6 +263,8 @@ def paged_gather_attend(q, k_pages, v_pages, block_table, lengths, meta, *,
     ids; meta: (sid, n_shards, kv_start) with kv_start the first KV head of
     q.  Returns UNNORMALISED (acc [B, Hkv_loc, G, D], m [B, Hkv_loc, G, 1],
     l [B, Hkv_loc, G, 1]), all f32."""
+    _build.check_no_grad("paged_gather_attend", q=q, k_pages=k_pages,
+                         v_pages=v_pages)
     dev = _build.check_cuda(q=q, k_pages=k_pages, v_pages=v_pages,
                       block_table=block_table, lengths=lengths)
     sid, n_shards, kv_start = _meta(meta)

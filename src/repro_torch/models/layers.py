@@ -1,7 +1,6 @@
 """Model building blocks: parameter tables, norms, RoPE, the QKV
-projection, full-sequence and batch-layout decode attention, the SwiGLU MLP
-and the embedding (a port of ``repro.models.layers`` for the dense family;
-cross-attention waits for the enc-dec slice).
+projection, full-sequence, cross and batch-layout decode attention, the
+SwiGLU MLP and the embedding (a port of ``repro.models.layers``).
 
 Parameters are nested dicts of tensors (or the ``nn.ParameterDict``s of
 :class:`repro_torch.models.model.Model`, which index the same way).
@@ -75,7 +74,12 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding in f32, cast back to ``x.dtype``.  x: [..., S, D]
-    (D even); positions: [..., S]."""
+    (D even); positions: [..., S].
+
+    M-RoPE (qwen2-vl's ``mrope_sections``) degenerates to this 1-D rotary
+    for text-shaped inputs: the vision frontend is a stub fed frame
+    embeddings, so the temporal section is the only active one and the
+    sections change no value (as in the reference)."""
     d = x.shape[-1]
     half = d // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
@@ -258,6 +262,36 @@ def attention_block(cfg: ModelConfig, p, x: torch.Tensor,
     return out @ p["wo"]
 
 
+def cross_attention_block(cfg: ModelConfig, p, x: torch.Tensor,
+                          kv_cache) -> torch.Tensor:
+    """Decoder cross-attention against precomputed encoder K/V (no rotary
+    on q or k, as in the reference).  x: [B, S, d]; kv_cache: (k, v) of
+    [B, Hkv, S_src, hd].  Non-causal, no window: under ``"pallas"`` it is
+    K3 with the queries taking every source position, Sq > S_src
+    included."""
+    b, s, _ = x.shape
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(b, s, cfg.n_heads, cfg.hd).transpose(1, 2)
+    k, v = kv_cache
+    out = full_attention(cfg, q, k, v, causal=False, window=None)
+    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
+    return out @ p["wo"]
+
+
+def encode_kv(cfg: ModelConfig, p, enc_out: torch.Tensor):
+    """Cross-attention K/V [B, Hkv, S_src, hd] from encoder states."""
+    b, s, _ = enc_out.shape
+    k = enc_out @ p["wk"]
+    v = enc_out @ p["wv"]
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
+    return k, v
+
+
 def decode_attention_block(cfg: ModelConfig, p, x: torch.Tensor,
                            k_cache: torch.Tensor, v_cache: torch.Tensor,
                            lengths: torch.Tensor, write_mask=None):
@@ -350,6 +384,34 @@ def unembed(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return x @ p["tok"].T
     return x @ p["head"]
+
+
+def masked_logits(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """Unembed ``x`` to f32 logits with the padded vocab columns at
+    ``NEG_INF``."""
+    logits = unembed(cfg, p, x).float()
+    if cfg.vocab_padded != cfg.vocab_size:
+        pad = torch.arange(cfg.vocab_padded, device=logits.device) \
+            >= cfg.vocab_size
+        logits = torch.where(pad, NEG_INF, logits)
+    return logits
+
+
+def token_nll_loss(logits: torch.Tensor, labels: torch.Tensor,
+                   mask=None) -> torch.Tensor:
+    """Masked next-token cross entropy of f32 ``logits`` [B, S, V] against
+    ``labels`` [B, S]: ``logsumexp - gold`` per token, summed under
+    ``mask`` over max(sum(mask), 1), or the mean without one.  The gold
+    logit is a gather: on one device it equals the reference's one-hot
+    contraction exactly (a sum of zeros and one value), without its
+    [B, S, V] mask."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    nll = nll * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def norm_defs(cfg: ModelConfig) -> dict:

@@ -1,12 +1,17 @@
-"""Model facade: an ``nn.Module`` holding the weights of a served decoder
-(a port of ``repro.models.model``).
+"""Model facade: an ``nn.Module`` holding the weights of one model of the
+registry, with its loss and its serving paths (a port of
+``repro.models.model``).
 
 Weights are drawn from an explicit ``torch.Generator`` on the model's device
 with the reference's distributions; they are stacked over layer periods
-exactly as the reference's param pytree, so
+(decoders) or layers (enc-dec) exactly as the reference's param pytree, so
 :func:`repro_torch.weights.from_jax_params` can load that pytree one tensor
-at a time.  The model runs inference only (forward, prefill, decode):
-parameters never require gradients.
+at a time.  Parameters are built with ``requires_grad=False``: forward,
+prefill and decode run without gradients.  Training turns them on
+(``model.params.requires_grad_(True)``, as
+:class:`repro_torch.train.trainer.Trainer` does) and takes :meth:`loss`,
+which indexes the stacked weights afresh with grad on; an optimizer step
+writes the parameters in place, so the cached serving views stay valid.
 """
 from __future__ import annotations
 
@@ -14,8 +19,16 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+
+
+def defs_for(cfg: ModelConfig) -> dict:
+    """The parameter tables of ``cfg``: enc-dec or decoder."""
+    if T.is_encdec(cfg):
+        return E.encdec_defs(cfg)
+    return T.decoder_defs(cfg)
 
 
 def _build(defs: dict, gen: torch.Generator, dtype, device) -> nn.Module:
@@ -33,6 +46,13 @@ def _build(defs: dict, gen: torch.Generator, dtype, device) -> nn.Module:
         for k in sorted(defs)})
 
 
+def param_tree(module) -> dict:
+    """The parameters of a built table as a plain nested dict (the same
+    tensors), keyed as the reference's pytree."""
+    return {k: v if isinstance(v, torch.Tensor) else param_tree(v)
+            for k, v in module.items()}
+
+
 class Model(nn.Module):
     """``Model(cfg, device=None, seed=0)``: ``device`` defaults to ``cuda``
     and raises without a GPU; pass ``device="cpu"`` to run on the CPU."""
@@ -41,18 +61,43 @@ class Model(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        self.params = _build(T.decoder_defs(cfg), gen,
+        self.params = _build(defs_for(cfg), self._generator(seed),
                              torch_dtype(cfg.param_dtype), self.device)
         self._periods = None
+
+    def _generator(self, seed: int) -> torch.Generator:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        return gen
+
+    # -- parameters -------------------------------------------------------------
+    @property
+    def defs(self) -> dict:
+        return defs_for(self.cfg)
+
+    def init(self, seed: int = 0) -> dict:
+        """Draw every weight anew from ``seed`` (the values
+        ``Model(cfg, seed=seed)`` holds), in place; returns
+        :meth:`param_tree`."""
+        fresh = _build(self.defs, self._generator(seed),
+                       torch_dtype(self.cfg.param_dtype), self.device)
+        with torch.no_grad():
+            for p, q in zip(self.params.parameters(), fresh.parameters()):
+                p.copy_(q)
+        return self.param_tree()
+
+    def param_tree(self) -> dict:
+        return param_tree(self.params)
+
+    def param_count(self) -> int:
+        return sum(p.numel() for p in self.params.parameters())
 
     def with_config(self, cfg: ModelConfig) -> "Model":
         """A model over this one's weight tensors under ``cfg``, which may
         differ from ``self.cfg`` only in fields that shape no weight (the
         KV layout, its pool and page size, the kernel switches): engines of
         one model size share one set of weights."""
-        if (T.decoder_defs(cfg) != T.decoder_defs(self.cfg)
+        if (defs_for(cfg) != self.defs
                 or cfg.param_dtype != self.cfg.param_dtype):
             raise ValueError(
                 f"{cfg.name}: weights differ from {self.cfg.name}'s")
@@ -62,32 +107,73 @@ class Model(nn.Module):
         other.params, other._periods = self.params, self._periods
         return other
 
-    def periods(self) -> list[dict]:
-        """Per-period views of the stacked block weights, made once."""
+    def periods(self):
+        """Views of the stacked weights, made once: per period for a
+        decoder (:func:`repro_torch.models.transformer.period_views`), per
+        encoder and decoder layer for enc-dec
+        (:func:`repro_torch.models.encdec.layer_views`)."""
         if self._periods is None:
-            self._periods = [T.period_params(self.params, j)
-                             for j in range(self.cfg.n_periods)]
+            with torch.no_grad():
+                self._periods = (E.layer_views if T.is_encdec(self.cfg)
+                                 else T.period_views)(self.cfg, self.params)
         return self._periods
 
-    def init_cache(self, batch_size: int, max_len: int, dtype=None) -> dict:
+    # -- training ---------------------------------------------------------------
+    def loss(self, batch: dict, params=None) -> torch.Tensor:
+        """Masked next-token cross entropy of ``batch`` (the reference's
+        ``Model.loss``) over ``params`` (this model's by default), with
+        the stacked weights indexed afresh so that gradients reach them."""
+        params = self.params if params is None else params
+        if T.is_encdec(self.cfg):
+            return E.lm_loss(self.cfg, params, batch)
+        return T.lm_loss(self.cfg, params, batch)
+
+    # -- serving ----------------------------------------------------------------
+    def init_cache(self, batch_size: int, max_len: int,
+                   src_len: int | None = None, dtype=None) -> dict:
+        if T.is_encdec(self.cfg):
+            return E.init_cache(self.cfg, batch_size, max_len,
+                                src_len or max_len, self.device, dtype)
         return T.init_cache(self.cfg, batch_size, max_len, self.device, dtype)
 
     @torch.no_grad()
     def forward(self, batch: dict) -> torch.Tensor:
-        """Hidden states [B, S, d] of ``batch["tokens"]`` [B, S]; see
+        """Hidden states [B, S, d] of ``batch["tokens"]`` [B, S] or
+        ``batch["embeds"]`` [B, S, d]; see
         :func:`repro_torch.models.transformer.forward`."""
         return T.forward(self.cfg, self.params, batch, periods=self.periods())
 
     @torch.no_grad()
+    def encode(self, embeds: torch.Tensor) -> torch.Tensor:
+        """Enc-dec: encoder states of frame embeddings [B, S_src, d]."""
+        return E.encode(self.cfg, self.params, embeds, self.periods())
+
+    @torch.no_grad()
+    def prepare_cross_cache(self, embeds: torch.Tensor, cache: dict) -> dict:
+        """Enc-dec: the cache with its cross-attention K/V filled from
+        ``embeds``; see :func:`repro_torch.models.encdec.prepare_cross_cache`."""
+        return E.prepare_cross_cache(self.cfg, self.params, embeds, cache,
+                                     self.periods())
+
+    @torch.no_grad()
     def prefill(self, batch: dict, max_len: int):
         """(last-position logits, batch-layout cache) of the prompt; see
-        :func:`repro_torch.models.transformer.prefill`."""
+        :func:`repro_torch.models.transformer.prefill`.  Enc-dec has none:
+        its serving starts from :meth:`prepare_cross_cache`."""
+        if T.is_encdec(self.cfg):
+            raise NotImplementedError("encdec prefill = prepare_cross_cache")
         return T.prefill(self.cfg, self.params, batch, max_len,
                          periods=self.periods())
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, cache: dict,
                     lengths: torch.Tensor, write_mask=None):
-        """One decode step; see :func:`repro_torch.models.transformer.decode_step`."""
+        """One decode step; see :func:`repro_torch.models.transformer.decode_step`
+        or, for enc-dec, :func:`repro_torch.models.encdec.decode_step`
+        (which, as the reference's, has no masked-write path and does not
+        read ``write_mask``)."""
+        if T.is_encdec(self.cfg):
+            return E.decode_step(self.cfg, self.params, tokens, cache,
+                                 lengths, self.periods())
         return T.decode_step(self.cfg, self.params, tokens, cache, lengths,
                              write_mask, periods=self.periods())

@@ -18,12 +18,21 @@ A Mamba2 block position keeps per-slot recurrent state in every layout:
 ``{"conv": [n_periods, B, conv-1, d_inner + 2GN], "ssd": [n_periods, B, H,
 N, P] f32}``.
 
-The reference's ``remat``, ``block_barrier``, ``unroll_layers`` and
-``maybe_constrain`` are XLA compilation and sharding controls (rematerial-
-isation, optimisation barriers, unrolled scans, sharding constraints): an
+Inputs are token ids (``batch["tokens"]``) or, for the frontend-stub
+archs (qwen2-vl-7b), precomputed frame embeddings (``batch["embeds"]``
+[B, S, d_model]) in their place.  The encoder-decoder family lives in
+:mod:`repro_torch.models.encdec`.
+
+``cfg.remat`` is read where gradients are taken (:func:`stack_apply` with
+grad enabled): ``"block"`` and ``"full"`` wrap each period in
+``torch.utils.checkpoint`` as the reference wraps ``period_step`` in
+``jax.checkpoint``, and ``"dots"`` keeps the matmul outputs and recomputes
+the rest (torch's selective checkpoint, the reference's
+``checkpoint_dots``); the values do not change.  ``block_barrier``,
+``unroll_layers`` and ``maybe_constrain`` are XLA compilation and sharding
+controls (optimisation barriers, unrolled scans, sharding constraints): an
 eager PyTorch loop has nothing they would change, so the port reads none
-of them.  ``lm_loss`` waits for the training slice (ROADMAP Queue 1 item
-2) and enc-dec for item 1.
+of them.
 """
 from __future__ import annotations
 
@@ -36,15 +45,38 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
+from repro_torch.tree import unstack
+
+
+#: the frontend stubs: their inputs are precomputed frame embeddings
+FRONTENDS = (None, "vision_stub", "audio_stub")
+
+
+def is_encdec(cfg: ModelConfig) -> bool:
+    """Whether ``cfg`` is the encoder-decoder family (the reference's
+    ``Model.defs`` test)."""
+    return cfg.family == "encdec" or bool(cfg.n_encoder_layers)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for what this
-    slice of the port does not serve yet."""
-    if cfg.family == "encdec" or cfg.n_encoder_layers:
-        raise NotImplementedError("enc-dec models: ROADMAP Queue 1 item 1")
-    if cfg.frontend is not None:
-        raise NotImplementedError("vision/audio frontends: ROADMAP Queue 1 item 1")
+    """Raise NotImplementedError, naming it, for what the port does not
+    serve: a frontend other than the reference's stubs, and enc-dec on a
+    paged or pooled KV layout (the reference serves enc-dec on the batch
+    layout only: its decode has no masked-write path)."""
+    if cfg.frontend not in FRONTENDS:
+        raise NotImplementedError(f"frontend {cfg.frontend!r}: the port has "
+                                  f"the stubs {FRONTENDS[1:]} only")
+    if is_encdec(cfg) and cfg.kv_layout != "batch":
+        raise NotImplementedError(
+            f"enc-dec on the {cfg.kv_layout!r} KV layout: the reference "
+            "serves enc-dec on the batch layout only")
+
+
+def _check_decoder(cfg: ModelConfig) -> None:
+    check_supported(cfg)
+    if is_encdec(cfg):
+        raise ValueError(f"{cfg.name} is an encoder-decoder: use "
+                         "repro_torch.models.encdec")
 
 
 # ---------------------------------------------------------------------------
@@ -66,7 +98,7 @@ def block_defs(cfg: ModelConfig, i: int) -> dict:
 
 
 def decoder_defs(cfg: ModelConfig) -> dict:
-    check_supported(cfg)
+    _check_decoder(cfg)
     defs: dict = {"embed": L.embedding_defs(cfg), "ln_f": L.norm_defs(cfg)}
     for i in range(cfg.layer_period):
         defs[f"b{i}"] = L.stack_defs(block_defs(cfg, i), cfg.n_periods)
@@ -98,30 +130,63 @@ def block_apply(cfg: ModelConfig, i: int, p, x: torch.Tensor,
     return _ffn(cfg, i, p, _mixer(cfg, i, p, x, positions))
 
 
-def period_params(params, j: int) -> dict:
-    """Period ``j``'s slice of every stacked block parameter, as views."""
-    def take(tree):
-        return {k: take(v) if not isinstance(v, torch.Tensor) else v[j]
-                for k, v in tree.items()}
-    return {k: take(v) for k, v in params.items() if k.startswith("b")}
+def period_views(cfg: ModelConfig, params) -> list[dict]:
+    """Each period's slice of every stacked block parameter, as views."""
+    return unstack({k: v for k, v in params.items() if k.startswith("b")},
+                   cfg.n_periods)
 
 
 def _periods(cfg: ModelConfig, params, periods):
-    return periods if periods is not None else [
-        period_params(params, j) for j in range(cfg.n_periods)]
+    return periods if periods is not None else period_views(cfg, params)
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    if func in (aten.mm.default, aten.bmm.default, aten.addmm.default,
+                aten.baddbmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(cfg: ModelConfig, fn):
+    """``fn`` under ``cfg.remat`` while gradients are being recorded: the
+    whole call recomputed in the backward pass ("block", "full"), or all
+    of it but its matmul outputs ("dots"); ``fn`` itself otherwise."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat not in ("block", "full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    from torch.utils import checkpoint as ckpt
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = lambda: ckpt.create_selective_checkpoint_contexts(
+            _dots_policy)
+    return lambda *args: ckpt.checkpoint(fn, *args, use_reentrant=False,
+                                         **kw)
 
 
 def stack_apply(cfg: ModelConfig, params, x: torch.Tensor,
                 positions: torch.Tensor, periods=None) -> torch.Tensor:
-    for pp in _periods(cfg, params, periods):
+    def period_step(h, pp):
         for i in range(cfg.layer_period):
-            x = block_apply(cfg, i, pp[f"b{i}"], x, positions)
+            h = block_apply(cfg, i, pp[f"b{i}"], h, positions)
+        return h
+
+    step = remat(cfg, period_step)
+    for pp in _periods(cfg, params, periods):
+        x = step(x, pp)
     return x
 
 
 def _embed(cfg: ModelConfig, params, batch: dict) -> torch.Tensor:
-    return L.embed_tokens(cfg, params["embed"], batch["tokens"]).to(
-        torch_dtype(cfg.compute_dtype))
+    """The stack's input: ``batch["embeds"]`` (frame embeddings) where
+    given, else the embedded ``batch["tokens"]``, in the compute dtype."""
+    if "embeds" in batch:
+        x = batch["embeds"]
+    else:
+        x = L.embed_tokens(cfg, params["embed"], batch["tokens"])
+    return x.to(torch_dtype(cfg.compute_dtype))
 
 
 def _positions(x: torch.Tensor) -> torch.Tensor:
@@ -132,20 +197,27 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 def _last_logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     """Final norm, unembed of the last position, padded vocab masked."""
     x = L.rms_norm(x, params["ln_f"]["w"], cfg.rms_eps)
-    logits = L.unembed(cfg, params["embed"], x[:, -1]).float()
-    if cfg.vocab_padded != cfg.vocab_size:
-        pad = torch.arange(cfg.vocab_padded, device=logits.device) \
-            >= cfg.vocab_size
-        logits = torch.where(pad, L.NEG_INF, logits)
-    return logits
+    return L.masked_logits(cfg, params["embed"], x[:, -1])
 
 
 def forward(cfg: ModelConfig, params, batch: dict, periods=None):
-    """Embed -> stack -> final norm.  Returns hidden states [B, S, d]."""
-    check_supported(cfg)
+    """Embed (or take ``batch["embeds"]``) -> stack -> final norm.
+    Returns hidden states [B, S, d]."""
+    _check_decoder(cfg)
     x = _embed(cfg, params, batch)
     x = stack_apply(cfg, params, x, _positions(x), periods)
     return L.rms_norm(x, params["ln_f"]["w"], cfg.rms_eps)
+
+
+def lm_loss(cfg: ModelConfig, params, batch: dict,
+            periods=None) -> torch.Tensor:
+    """Masked next-token cross entropy (labels already shifted by the data
+    pipeline), softmax in f32 with the padded vocab at ``NEG_INF``
+    (:func:`repro_torch.models.layers.token_nll_loss`).  To take gradients
+    pass no ``periods``: views made without grad carry none."""
+    x = forward(cfg, params, batch, periods)
+    logits = L.masked_logits(cfg, params["embed"], x)
+    return L.token_nll_loss(logits, batch["labels"], batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------
@@ -162,7 +234,7 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device,
     empty.  Mamba2 block positions: ``conv`` [n_periods, B, conv-1,
     d_inner + 2GN] in the compute dtype and ``ssd`` [n_periods, B, H, N, P]
     in f32."""
-    check_supported(cfg)
+    _check_decoder(cfg)
     kv_dtype = torch_dtype(dtype or cfg.kv_dtype or cfg.compute_dtype)
     state_dtype = torch_dtype(dtype or cfg.compute_dtype)
     if cfg.kv_layout not in ("batch", "paged", "pooled"):
@@ -249,8 +321,9 @@ def prefill(cfg: ModelConfig, params, batch: dict, max_len: int,
     cache) with the cache in the batch KV layout: per attention block
     ``{"k", "v"}`` of [n_periods, B, Hkv, max_len, hd] in the compute dtype,
     as the reference pads and casts it; per Mamba2 block ``{"conv",
-    "ssd"}`` as :func:`init_cache` lays them out."""
-    check_supported(cfg)
+    "ssd"}`` as :func:`init_cache` lays them out.  The prompt is
+    ``batch["tokens"]`` or ``batch["embeds"]``."""
+    _check_decoder(cfg)
     x = _embed(cfg, params, batch)
     b, s = x.shape[:2]
     if s > max_len:
@@ -303,7 +376,7 @@ def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache: dict,
     tokens: [B, 1] (the tokens just sampled); lengths: [B] int32 valid
     length INCLUDING these tokens.  Returns (logits [B, vocab_padded] f32,
     cache); the cache's pages are updated in place.  ``periods`` may pass
-    precomputed :func:`period_params` slices (one per period).
+    precomputed :func:`period_views` slices (one per period).
 
     write_mask: optional [B] bool -- sequences masked off keep their KV
     unchanged (the engine prefills one slot through the shared batch)."""

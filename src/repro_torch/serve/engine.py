@@ -57,6 +57,7 @@ import torch
 
 from repro_torch.emem_vm import BlockManager, OutOfFrames, PageIO
 from repro_torch.models.model import Model
+from repro_torch.models.transformer import is_encdec
 from repro_torch.parallel.paged_attention import (cow_copy_pages,
                                                   read_frame_pages,
                                                   read_slot_state,
@@ -107,6 +108,11 @@ class EngineConfig:
 
 class ServeEngine:
     def __init__(self, model: Model, ecfg: EngineConfig):
+        if is_encdec(model.cfg):
+            raise NotImplementedError(
+                f"{model.cfg.name}: the engine serves decoders; enc-dec is "
+                "served by Model.prepare_cross_cache then Model.decode_step, "
+                "as in the reference")
         if ecfg.preempt_mode not in ("swap", "recompute"):
             raise ValueError(f"unknown preempt_mode {ecfg.preempt_mode!r}")
         if ecfg.max_fused_steps < 1:

@@ -1,8 +1,9 @@
 """Port hygiene: the PyTorch package, chip_smoke.py, the port's benchmark
-and its serve example import neither JAX nor the reference package (nor
-the reference's benchmark modules), the entry points refuse to fall back
-to the CPU silently when no CUDA device is present, and the kernel
-packages export the reference's public names."""
+and its serve and train examples import neither JAX nor the reference
+package (nor the reference's benchmark modules), the entry points refuse
+to fall back to the CPU silently when no CUDA device is present, the
+kernel packages export the reference's public names, and every kernel
+wrapper refuses a grad-requiring input before its launch."""
 import ast
 import importlib
 import pathlib
@@ -15,7 +16,8 @@ torch = pytest.importorskip("torch")
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "benchmarks" / "vm_bench_torch.py",
-    ROOT / "examples" / "serve_lm_torch.py"]
+    ROOT / "examples" / "serve_lm_torch.py",
+    ROOT / "examples" / "train_lm_torch.py"]
 #: the reference's benchmark modules, which import JAX
 REFERENCE_BENCHMARKS = ("benchmarks.vm_bench", "benchmarks.kernel_bench")
 
@@ -82,6 +84,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         from_jax_params(cfg, {})
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--smoke", "--requests", "1"])
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--smoke", "--steps", "1"])
     assert Model(cfg, device="cpu").device.type == "cpu"
     spec = emem.EMemSpec(n_slots=256, width=4, page_slots=16)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -91,3 +96,48 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert emem.create(spec, device="cpu").device.type == "cpu"
     vm = EMemVM(VMConfig(spec=spec, n_vpages=8, cache_sets=2), device="cpu")
     assert vm.data.device.type == vm.cache["data"].device.type == "cpu"
+
+
+#: the kernel wrapper modules, one per CUDA library
+WRAPPERS = ("paged_decode/kernel.py", "paged_decode/flash.py",
+            "paged_decode/gather.py", "flash_attention/kernel.py",
+            "mamba2_ssd/kernel.py")
+
+
+def _calls(fn):
+    """Names of the functions ``fn`` calls, in source order."""
+    out = []
+    for node in ast.walk(fn):
+        if isinstance(node, ast.Call):
+            f = node.func
+            out.append((node.lineno, node.col_offset,
+                        f.attr if isinstance(f, ast.Attribute)
+                        else getattr(f, "id", "")))
+    return [name for *_, name in sorted(out)]
+
+
+def test_kernel_wrappers_refuse_grad_before_their_launch():
+    """In each wrapper module every function that checks its tensors for
+    the card (``check_cuda``, which comes before any launch) first calls
+    the shared grad guard ``build.check_no_grad``; the guard raises on a
+    grad-requiring input while autograd records and lets it pass under
+    ``torch.no_grad()``."""
+    from repro_torch.kernels import build
+    checked = 0
+    for rel in WRAPPERS:
+        path = ROOT / "src" / "repro_torch" / "kernels" / rel
+        for fn in ast.walk(ast.parse(path.read_text(), str(path))):
+            if not isinstance(fn, ast.FunctionDef):
+                continue
+            calls = _calls(fn)
+            if "check_cuda" in calls:
+                assert "check_no_grad" in calls[:calls.index("check_cuda")], (
+                    rel, fn.name)
+                checked += 1
+    assert checked == 8
+    x = torch.ones(2, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        build.check_no_grad("k", q=x, lengths=torch.ones(2))
+    with torch.no_grad():
+        build.check_no_grad("k", q=x)
+    build.check_no_grad("k", q=x.detach(), w=None)

@@ -146,20 +146,15 @@ def test_dense_arch_decode_step_logits_match_jax(arch):
 
 
 def test_registry_serves_the_reference_decoder_archs():
-    """The port's registry lists the reference registry's archs but its
-    enc-dec and VLM ones, with the same configs; ``check_supported``
-    refuses exactly those two."""
+    """The port's registry lists the reference registry's ten archs, the
+    enc-dec and VLM ones included, with the same configs;
+    ``check_supported`` refuses none of them."""
     from repro.configs import get_config, list_archs
     from repro_torch import configs as port_configs
     from repro_torch.models.transformer import check_supported
-    waiting = {"seamless-m4t-medium", "qwen2-vl-7b"}
-    assert set(port_configs.list_archs()) == set(list_archs()) - waiting
+    assert set(port_configs.list_archs()) == set(list_archs())
     for arch in list_archs():
         cfg = port_cfg(get_config(arch))
-        if arch in waiting:
-            with pytest.raises(NotImplementedError):
-                check_supported(cfg)
-            continue
         check_supported(cfg)
         assert port_configs.get_config(arch) == cfg
         assert port_configs.get_smoke_config(arch) == port_cfg(
