@@ -11,7 +11,9 @@ mamba2-780m: prefill through the SSD scan (K5) and recurrent-state serving;
 then the emulated memory itself at the reference's production scale (2^24
 slots of 128 f32, 8 GiB): EMem reads and writes through the slot gather
 (K7) and EMemVM, whose whole-page reads go through the page gather (K6);
-then the serving-memory benchmark (``benchmarks/vm_bench_torch.py``) at
+then the same memory and the pooled serving path over a process group
+(NCCL, world 1, the mesh context installed); then the serving-memory
+benchmark (``benchmarks/vm_bench_torch.py``) at
 qwen3-0.6b (K1, K2, K6, K7); then the reference's other decoder archs
 (granite-3-2b, h2o-danube-1.8b, qwen2-moe-a2.7b, qwen2-72b, mixtral-8x7b,
 jamba-v0.1-52b, and qwen2-vl-7b fed frame embeddings) at their published
@@ -142,7 +144,23 @@ phase prints one JSON line with its seconds (phase archs one per arch):
                  single-view read_ref/write_ref); every vread launched
                  K7 once and K6 once per cache fill and swap-out; vread /
                  vwrite us and the hit rate;
-15. vm_bench  -- benchmarks/vm_bench_torch.py's workloads with the
+15. mesh      -- an NCCL process group of one rank (a ``file://`` store
+                 under build/) and a (1, 1) ("data", "model") DeviceMesh
+                 with the mesh context installed: EMem's process-group read
+                 and write of the 8 GiB store, 4096 uniform requests with
+                 repeated write addresses, bit-equal to the one-card form
+                 (K7 once per read), and its exchange driven directly at
+                 capacity factor 1 (all_to_all_single through NCCL on the
+                 card), bit-equal to the one-shard shortcut; EMemVM on the
+                 mesh through phase vm's sequence at 16 cache sets,
+                 bit-equal to the one-card EMemVM (K7, K6); phase tokens'
+                 trace in f32 at CUT_LAYERS's depth served under the
+                 context (the rank body) with the tokens and telemetry of
+                 the same trace without it, K1 = K2 = 4 per decode step;
+                 one profiled decode step's device ms and ops with and
+                 without the context and the collectives a step calls;
+                 the group is destroyed at the end;
+16. vm_bench  -- benchmarks/vm_bench_torch.py's workloads with the
                  reference's traffic at qwen3-0.6b's full width in f32,
                  at CUT_LAYERS's depth:
                  every reference assertion but the dispatch wall
@@ -151,7 +169,7 @@ phase prints one JSON line with its seconds (phase archs one per arch):
                  layer and decode step in each pooled or reserved
                  section, both in the sweep, K6 and K7 in the EMemVM
                  rows; each headline beside the CPU one of BENCH_vm.json;
-16. archs     -- each of ARCHS_LAYERS's six archs in bf16 at its published
+17. archs     -- each of ARCHS_LAYERS's six archs in bf16 at its published
                  widths, cut in depth only where 80 GB cannot hold it (the
                  cut as ``reduced`` on its line), one at a time: a
                  4-request trace of the serve phase's settings through
@@ -174,7 +192,7 @@ phase prints one JSON line with its seconds (phase archs one per arch):
                  (28 layers, G 7, QKV bias) from frame embeddings through
                  K3 on the tensor cores, and K2 at its G 7 against its
                  plain version with its time (``--archs`` picks a subset);
-17. encdec    -- seamless-m4t-medium at its published widths in bf16 on
+18. encdec    -- seamless-m4t-medium at its published widths in bf16 on
                  SyntheticLM's frame embeddings (B 8, S_src 512, seed 0):
                  prepare_cross_cache and 64 greedy decode steps launch K3
                  12 + 12 x 64 times (encoder, then cross-attention at
@@ -188,7 +206,7 @@ phase prints one JSON line with its seconds (phase archs one per arch):
                  "chunked"'s; a
                  decode step's device time against its weights' read,
                  K3 at Sq 1 beside SDPA, K4 at D 64 / G 1;
-18. train     -- qwen3-0.6b at full width trains 10 steps on the plain
+19. train     -- qwen3-0.6b at full width trains 10 steps on the plain
                  paths (bf16 with f32 masters, remat "block", 8 x 512):
                  the loss falls, a run resumed from the step-5
                  checkpoint's files equals the uninterrupted one bit for
@@ -2831,6 +2849,223 @@ def phase_vm(dev):
 
 # -- phase 15 ------------------------------------------------------------------
 
+#: phase mesh's EMemVM run: phase vm's sequence at one of its cache sizes
+MESH_VM_SETS = 16
+#: decode steps profiled with and without the mesh context
+MESH_PROFILE_STEPS = 5
+
+
+def mesh_step(dev, model):
+    """One pooled decode step of 8 sequences at 256 tokens over scrambled
+    tables (phase profile's inputs) on ``model``, under whatever mesh
+    context is installed: device ms and device ops per step
+    (torch.profiler), and the collectives one step calls."""
+    import torch
+    from repro_torch.parallel import mesh_ctx
+    from repro_torch.serve.fused_decode import sampled_decode_step
+    cache = model.init_cache(B, MAX_LP * PS)
+    rng = np.random.default_rng(5)
+    bt, fl, fr = mk_vm(rng, B, MAX_LP, PS, [MAX_LP * PS] * B, False)
+    cache["vm"] = {"block_table": torch.tensor(bt, device=dev),
+                   "frame_lpage": torch.tensor(fl, device=dev),
+                   "frame_ro": torch.tensor(fr, device=dev)}
+    wm = torch.ones(B, dtype=torch.bool, device=dev)
+    tok = torch.tensor(rng.integers(0, model.cfg.vocab_size, (B, 1)),
+                       dtype=torch.int32, device=dev)
+    lengths = torch.full((B,), 256, dtype=torch.int32, device=dev)
+
+    def step():
+        sampled_decode_step(model, tok, cache, lengths, wm)
+    step()
+    mesh_ctx.reset_calls()
+    step()
+    calls = dict(mesh_ctx.CALLS)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(MESH_PROFILE_STEPS):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) / MESH_PROFILE_STEPS * 1e3
+    ms, by_name = device_profile(step, iters=MESH_PROFILE_STEPS)
+    if ms is None:
+        raise AssertionError("the profiler saw no device time in a step")
+    nccl = {k[:60]: v for k, v in by_name.items() if "nccl" in k.lower()}
+    del cache
+    return {"wall_ms": wall, "device_ms": ms,
+            "device_ops": by_name["device_ops_per_call"],
+            "collectives": calls, "nccl_kernels_ms": nccl}
+
+
+def collective_us(dev, group, iters: int = 200):
+    """Host us per call of each collective the port makes, on the
+    shapes of a served step's (a [8, 8, 128] f32 block; the all_to_all on
+    [1, 4096] int32), queued without a sync, then the device time per
+    call on the CUDA-event clock."""
+    import torch
+    from repro_torch.parallel import mesh_ctx
+    x = torch.ones((8, 8, 128), device=dev)
+    a = torch.zeros((1, 4096), dtype=torch.int32, device=dev)
+    calls = {"all_reduce": lambda: mesh_ctx.all_reduce(x, "sum", group),
+             "all_gather": lambda: mesh_ctx.all_gather(x, group),
+             "all_to_all": lambda: mesh_ctx.all_to_all(a, group)}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host = (time.perf_counter() - t) / iters * 1e6
+        torch.cuda.synchronize()
+        out[name] = {"host_us": host,
+                     "event_us": cuda_ms(fn, iters=iters) * 1e3}
+    return out
+
+
+def phase_mesh(dev):
+    """The port over a process group on the card, at world 1: NCCL, a
+    ``(1, 1)`` ("data", "model") DeviceMesh, the mesh context installed.
+    EMem's process-group read and write of the 8 GiB store at one shard,
+    4096 uniform requests with repeated write addresses, bit-equal to the
+    one-card form (K7 once per read), and its exchange driven directly at
+    capacity factor 1, where it cannot drop, through ``all_to_all_single``
+    on the card, bit-equal to the shortcut; EMemVM on the mesh through
+    phase vm's sequence (K7, K6 on fills and swap-outs) bit-equal to the
+    one-card EMemVM; phase tokens' trace at CUT_LAYERS's depth in f32
+    served under the context with the tokens and telemetry of the same
+    trace without it, K1 = K2 = attention layers per decode step; one
+    profiled decode step with and without the context and the collectives
+    it calls.  The group is destroyed at the end.  Returns ({kernel:
+    launches}, results)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import emem
+    from repro_torch.emem_vm import EMemVM, VMConfig
+    from repro_torch.kernels.paged_decode import gather as K67
+    from repro_torch.kernels.paged_decode import kernel as K
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.parallel import mesh_ctx
+    cut = CUT_LAYERS["qwen3-0.6b"]
+    launches = {"paged_kv_write": 0, "paged_gather_attend": 0,
+                "gather_pages": 0, "gather_slots": 0}
+    res = {"reduced": reduced("qwen3-0.6b")}
+    plain, st_plain, res["plain_serve_s"] = serve(
+        dev, "float32", TOKENS_REQUESTS, n_layers=cut)
+    model = Model(full_cfg("float32", n_layers=cut), device=dev, seed=0)
+    res["step_plain"] = mesh_step(dev, model)
+    store = os.path.join(ROOT, "build", f"mesh_store_{os.getpid()}")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    t = time.monotonic()
+    res["backend"] = init_process_group(dev, rank=0, world_size=1,
+                                        init_method=f"file://{store}")
+    try:
+        mesh = make_host_mesh(device=dev)
+        ctx = mesh_ctx.set_context(mesh)
+        group = ctx.kv_group
+        if res["backend"] != "nccl" or dist.get_backend(group) != "nccl":
+            raise AssertionError(f"backend {dist.get_backend(group)}")
+        res["group_start_s"] = time.monotonic() - t
+        res["collective_us"] = collective_us(dev, group)
+        # EMem: the rank's block is the whole store at one shard
+        spec = emem.EMemSpec(**EMEM_SPEC)
+        data = emem_store(dev, 103)
+        twin = data.clone()
+        g = torch.Generator(device=dev).manual_seed(131)
+        addrs, vals, _ = emem_batch(dev, spec, g, EMEM_CF)
+        vals2 = torch.randn_like(vals)
+        K67.reset_launch_counts()
+        got = [emem.read(spec, data, addrs, EMEM_CF, group=group)]
+        emem.write(spec, data, addrs, vals, EMEM_CF, group=group)
+        got.append(emem.read(spec, data, addrs, EMEM_CF, group=group))
+        torch.cuda.synchronize()
+        if K67.LAUNCHES != {"gather_slots": 2, "gather_pages": 0}:
+            raise AssertionError(f"EMem on the group launched {K67.LAUNCHES}")
+        launches["gather_slots"] += 2
+        want = [emem.read(spec, twin, addrs, EMEM_CF)]
+        emem.write(spec, twin, addrs, vals, EMEM_CF)
+        want.append(emem.read(spec, twin, addrs, EMEM_CF))
+        if not all(map(same_bits, got, want)) or not same_bits(data, twin):
+            raise AssertionError("EMem on the group differs from one card")
+        # the exchange at factor 1 (no drop): all_to_all_single through NCCL
+        cap = emem.capacity_for(spec, addrs.numel(), 1.0)
+        mesh_ctx.reset_calls()
+        ex = emem.read_exchange(spec, group, data, addrs, cap)
+        emem.write_exchange(spec, group, data, addrs, vals2, cap)
+        torch.cuda.synchronize()
+        res["exchange_calls"] = dict(mesh_ctx.CALLS)
+        emem.write(spec, twin, addrs, vals2, 1.0)
+        if mesh_ctx.CALLS["all_to_all"] != 4 or not same_bits(ex, want[1]) \
+                or not same_bits(data, twin):
+            raise AssertionError("EMem's exchange differs from the shortcut")
+        res["emem"] = {"requests": addrs.numel(), "capacity": cap,
+                       "read_us": wall_us(lambda: emem.read(
+                           spec, data, addrs, EMEM_CF, group=group)),
+                       "exchange_read_us": wall_us(lambda: emem.read_exchange(
+                           spec, group, data, addrs, cap))}
+        del data, twin, ex, got, want
+        torch.cuda.empty_cache()
+        # EMemVM on the mesh against the one-card EMemVM
+        cfg = VMConfig(spec=spec, n_vpages=2 * spec.n_pages,
+                       cache_sets=MESH_VM_SETS, n_host_pages=VM_HOST_PAGES)
+        vm = EMemVM(cfg, device=dev, mesh=mesh, axes=("data",))
+        kern = vm_run(vm, 113, check_launches=True)
+        for k, n in kern[5].items():
+            launches[k] += n
+        one = EMemVM(cfg, sharded=True, device=dev)
+        ref = vm_run(one, 113, check_launches=False)
+        if not all(map(same_bits, kern[0], ref[0])) or kern[1:3] != ref[1:3] \
+                or not same_bits(vm.data, one.data):
+            raise AssertionError("EMemVM on the mesh differs from one card")
+        res["vm"] = {"vreads": len(kern[0]), "vread_us": kern[3],
+                     "vwrite_us": kern[4], "one_card_vread_us": ref[3],
+                     "one_card_vwrite_us": ref[4], "launches": kern[5],
+                     "faults": kern[1]["faults"],
+                     "swap_outs": kern[1]["swap_outs"]}
+        del vm, one, kern, ref
+        torch.cuda.empty_cache()
+        # the trace under the context: the rank body at world 1
+        K.reset_launch_counts()
+        mesh_ctx.reset_calls()
+        outputs, stats, res["mesh_serve_s"] = serve(
+            dev, "float32", TOKENS_REQUESTS, n_layers=cut)
+        serve_calls = dict(mesh_ctx.CALLS)
+        steps = stats["decode_steps"]
+        n_attn = attn_layers(full_cfg("float32", n_layers=cut))
+        for name, n in K.LAUNCHES.items():
+            if n != n_attn * steps:
+                raise AssertionError(f"{name}: {n} launches for {steps} "
+                                     "decode steps under the context")
+            launches[name] += n
+        if outputs != plain:
+            bad = sorted(u for u in plain if plain[u] != outputs.get(u))
+            raise AssertionError(f"tokens differ under the context for {bad}")
+        if stats["telemetry"] != st_plain["telemetry"] \
+                or steps != st_plain["decode_steps"]:
+            raise AssertionError("telemetry differs under the context")
+        res["serve"] = {"requests": len(outputs), "decode_steps": steps,
+                        "swapped": stats["swapped"],
+                        "shared_prompt_tokens": stats["shared_prompt_tokens"],
+                        "collectives": serve_calls,
+                        "collectives_per_step": sum(serve_calls.values())
+                        / steps}
+        res["step_mesh"] = mesh_step(dev, model)
+    finally:
+        mesh_ctx.clear_context()
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    if dist.is_initialized():
+        raise AssertionError("the process group outlived phase mesh")
+    del model
+    torch.cuda.empty_cache()
+    return launches, res
+
+
+# -- phase 16 ------------------------------------------------------------------
+
 #: the sections whose engines serve through K1 and K2 (the pooled and
 #: reserved layouts); ``paged_decode`` is the sweep, ``throughput`` EMemVM
 VM_BENCH_SERVING = ("prefix_sharing", "swap", "tiered", "retention",
@@ -2882,7 +3117,7 @@ def phase_vm_bench(dev):
                       **record}
 
 
-# -- phase 16 ------------------------------------------------------------------
+# -- phase 17 ------------------------------------------------------------------
 
 #: the reference registry's other decoder archs at their published widths
 #: in bf16, each cut in depth (layers run) only where one card's 80 GB
@@ -3272,7 +3507,7 @@ def phase_arch(dev, arch: str):
     return launches, res
 
 
-# -- phase 17 ------------------------------------------------------------------
+# -- phase 18 ------------------------------------------------------------------
 
 #: phase encdec: seamless-m4t-medium at its published widths serving B 8
 #: sequences of S_src 512 frame embeddings (SyntheticLM's first batch at
@@ -3793,7 +4028,7 @@ def phase_encdec(dev):
     return launches, res
 
 
-# -- phase 18 ------------------------------------------------------------------
+# -- phase 19 ------------------------------------------------------------------
 
 #: phase train: qwen3-0.6b at full width, bf16 parameters with f32
 #: masters, remat "block", SyntheticLM(8 x 512, seed 0),
@@ -3999,8 +4234,8 @@ def phase_train(dev):
 # -- main -----------------------------------------------------------------------
 
 PHASES = ("build,kernels,teacher,profile,serve,tokens,flash,prefill,batch,"
-          "ssd,ssm_prefill,ssm_serve,gather,emem,vm,vm_bench,archs,encdec,"
-          "train")
+          "ssd,ssm_prefill,ssm_serve,gather,emem,vm,mesh,vm_bench,archs,"
+          "encdec,train")
 #: the kernels' libraries, sources and the TPU kernels they replace
 KERNELS = (
     ("paged_kv_write", "k1", "src/repro_torch/kernels/paged_decode/csrc/"
@@ -4150,6 +4385,13 @@ def main(argv=None) -> int:
         launches["gather_pages"] = vm_launches["gather_pages"]
         emit({"phase": "vm", "seconds": time.monotonic() - t,
               "launches": vm_launches, **res})
+    if "mesh" in phases:
+        t = time.monotonic()
+        mesh_launches, res = phase_mesh(dev)
+        for name, n in mesh_launches.items():
+            launches[name] += n
+        emit({"phase": "mesh", "seconds": time.monotonic() - t,
+              "launches": mesh_launches, **res})
     if "vm_bench" in phases:
         t = time.monotonic()
         bench_launches, res = phase_vm_bench(dev)

@@ -28,6 +28,18 @@ reference's on an ``n_shards``-device mesh.  Writes update the store in
 place (the reference returns a new array; an 8 GiB copy per write is not
 affordable) and still return it.
 
+The process-group form (``group=`` on :func:`create`, :func:`read`,
+:func:`write`, :func:`to_logical` and :func:`from_logical`) is the
+reference's ``shard_map`` form with one shard per rank: each rank holds
+its block of pages [pages_per_shard, page_slots, width] and issues its
+chunk of the requests; the requests and the values travel by
+``all_to_all_single`` over the group (:func:`read_rank`,
+:func:`write_rank`; their exchanges alone, :func:`read_exchange` and
+:func:`write_exchange`, also run at one shard), and the owner serves its
+queue with K7.  Of several
+writes to one slot the last in the reference's order wins: the
+requester's rank, then its position in the requester's batch.
+
 Addressing:
     page, offset = divmod(addr, page_slots)
     owner        = page %  n_shards          (cyclic distribution)
@@ -40,9 +52,11 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_decode import gather_ops
+from repro_torch.parallel import mesh_ctx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,11 +102,14 @@ class EMemSpec:
         return (page // self.n_shards) * self.page_slots + offset
 
 
-def create(spec: EMemSpec, device=None) -> torch.Tensor:
+def create(spec: EMemSpec, device=None, *, group=None) -> torch.Tensor:
     """A zero-initialized emulated memory on ``device`` (``cuda`` unless the
-    caller names another)."""
-    return torch.zeros(spec.global_shape(), dtype=spec.dtype,
-                       device=resolve_device(device))
+    caller names another): the whole store, or with ``group`` this rank's
+    block [pages_per_shard, page_slots, width]."""
+    shape = spec.global_shape()
+    if group is not None:
+        shape = (spec.pages_per_shard,) + shape[1:]
+    return torch.zeros(shape, dtype=spec.dtype, device=resolve_device(device))
 
 
 def capacity_for(spec: EMemSpec, n_requests_per_shard: int,
@@ -245,6 +262,72 @@ def write_shard(spec: EMemSpec, local_data: torch.Tensor, addrs: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Process-group bodies: this rank's shard (the reference's shard_map bodies)
+# ---------------------------------------------------------------------------
+def read_rank(spec: EMemSpec, group, local_data: torch.Tensor,
+              addrs: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Distributed read body of this rank.  ``local_data``: this rank's
+    pages [pages_per_shard, page_slots, width]; ``addrs``: this rank's
+    requests [R].  Returns [R, width] (zeros for dropped/overflowed
+    requests).  One shard reads its block directly, never dropping."""
+    if spec.n_shards == 1:
+        return _local_gather(spec, local_data, addrs.to(torch.int32))
+    return read_exchange(spec, group, local_data, addrs, capacity)
+
+
+def read_exchange(spec: EMemSpec, group, local_data: torch.Tensor,
+                  addrs: torch.Tensor, capacity: int) -> torch.Tensor:
+    """:func:`read_rank`'s exchange, at any shard count: the requests to
+    their owners by ``all_to_all``, the owner's gather, the values back."""
+    d = _plan(spec, addrs, capacity)
+    # request messages: [S, C] routed so owner o receives row per requester
+    recv_addr = mesh_ctx.all_to_all(d.send_addr, group)
+    served = _local_gather(spec, local_data, recv_addr.reshape(-1))
+    recv_vals = mesh_ctx.all_to_all(
+        served.view(spec.n_shards, capacity, spec.width), group)
+    out = recv_vals[d.owners, torch.where(d.valid, d.pos, 0)]
+    return out.masked_fill(~d.valid[:, None], 0)
+
+
+def write_rank(spec: EMemSpec, group, local_data: torch.Tensor,
+               addrs: torch.Tensor, values: torch.Tensor,
+               capacity: int) -> torch.Tensor:
+    """Distributed write body of this rank (shapes as :func:`read_rank`,
+    ``values`` [R, width]); updates ``local_data`` in place and returns
+    it."""
+    if spec.n_shards == 1:
+        return _local_scatter(spec, local_data, addrs, values)
+    return write_exchange(spec, group, local_data, addrs, values, capacity)
+
+
+def write_exchange(spec: EMemSpec, group, local_data: torch.Tensor,
+                   addrs: torch.Tensor, values: torch.Tensor,
+                   capacity: int) -> torch.Tensor:
+    """:func:`write_rank`'s exchange, at any shard count."""
+    s, w = spec.n_shards, spec.width
+    d = _plan(spec, addrs, capacity)
+    cell = torch.where(d.valid, d.owners * capacity + d.pos, s * capacity)
+    send = torch.zeros((s * capacity + 1, w), dtype=spec.dtype,
+                       device=addrs.device)
+    send[cell] = values.to(spec.dtype)
+    recv_addr = mesh_ctx.all_to_all(d.send_addr, group)
+    recv_vals = mesh_ctx.all_to_all(send[:-1].view(s, capacity, w), group)
+    # the received queues in [requester, position] order: the scatter's
+    # last writer is the reference's
+    return _local_scatter(spec, local_data, recv_addr.reshape(-1),
+                          recv_vals.reshape(-1, w))
+
+
+def _check_group(spec: EMemSpec, group, data: torch.Tensor) -> None:
+    n = dist.get_world_size(group)
+    if n != spec.n_shards:
+        raise ValueError(f"a group of {n} ranks holds {spec.n_shards} shards")
+    want = (spec.pages_per_shard, spec.page_slots, spec.width)
+    if tuple(data.shape) != want:
+        raise ValueError(f"a rank's block is {want}, got {tuple(data.shape)}")
+
+
+# ---------------------------------------------------------------------------
 # Store-level entry points (the reference's mesh-level wrappers)
 # ---------------------------------------------------------------------------
 def _split(spec: EMemSpec, data: torch.Tensor, addrs: torch.Tensor,
@@ -260,20 +343,39 @@ def _split(spec: EMemSpec, data: torch.Tensor, addrs: torch.Tensor,
 
 
 def read(spec: EMemSpec, data: torch.Tensor, addrs: torch.Tensor,
-         capacity_factor: float = 2.0) -> torch.Tensor:
+         capacity_factor: float = 2.0, *, group=None) -> torch.Tensor:
     """Distributed random read of ``addrs`` (global [R], requester ``r``
-    issuing chunk ``r``) from ``data`` in physical page order -> [R, width]."""
+    issuing chunk ``r``) from ``data`` in physical page order -> [R, width].
+    With ``group``: ``data`` is this rank's block and ``addrs`` this rank's
+    chunk [R], and the result is this rank's [R, width]."""
+    if group is not None:
+        _check_group(spec, group, data)
+        cap = capacity_for(spec, addrs.shape[0], capacity_factor)
+        return read_rank(spec, group, data, addrs, cap)
     local, addrs, cap = _split(spec, data, addrs, capacity_factor)
     return read_shard(spec, local, addrs, cap).reshape(-1, spec.width)
 
 
 def write(spec: EMemSpec, data: torch.Tensor, addrs: torch.Tensor,
-          values: torch.Tensor, capacity_factor: float = 2.0) -> torch.Tensor:
-    """Distributed random write, in place; returns ``data``."""
+          values: torch.Tensor, capacity_factor: float = 2.0, *,
+          group=None) -> torch.Tensor:
+    """Distributed random write, in place; returns ``data``.  With
+    ``group`` as :func:`read`: ``values`` is this rank's chunk's."""
+    if group is not None:
+        _check_group(spec, group, data)
+        cap = capacity_for(spec, addrs.shape[0], capacity_factor)
+        return write_rank(spec, group, data, addrs, values, cap)
     local, addrs, cap = _split(spec, data, addrs, capacity_factor)
     write_shard(spec, local, addrs,
                 values.reshape(spec.n_shards, -1, spec.width), cap)
     return data
+
+
+def sharding_for(spec: EMemSpec, mesh, axes) -> tuple:
+    """Placements of the store over a ``DeviceMesh``: pages over ``axes``."""
+    from repro_torch.parallel import sharding
+    axes = tuple(axes)
+    return sharding.placements((axes if len(axes) > 1 else axes[0],), mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -285,14 +387,25 @@ def _page_perm(spec: EMemSpec) -> np.ndarray:
     return (p % spec.n_shards) * spec.pages_per_shard + p // spec.n_shards
 
 
-def to_logical(spec: EMemSpec, data: torch.Tensor) -> torch.Tensor:
-    """Physical (device-block) page order -> logical page order (a copy)."""
+def to_logical(spec: EMemSpec, data: torch.Tensor, *,
+               group=None) -> torch.Tensor:
+    """Physical (device-block) page order -> logical page order (a copy).
+    With ``group``, ``data`` is this rank's block: the blocks are gathered
+    and every rank gets the whole store."""
+    if group is not None:
+        _check_group(spec, group, data)
+        data = mesh_ctx.all_gather(data, group).view(spec.global_shape())
     perm = torch.as_tensor(_page_perm(spec), device=data.device)
     return data.index_select(0, perm)
 
 
-def from_logical(spec: EMemSpec, data: torch.Tensor) -> torch.Tensor:
-    """Logical page order -> physical page order (a copy)."""
+def from_logical(spec: EMemSpec, data: torch.Tensor, *,
+                 group=None) -> torch.Tensor:
+    """Logical page order -> physical page order (a copy).  With ``group``,
+    this rank's block of it: the logical pages ``p`` with
+    ``p % n_shards`` the rank's index."""
+    if group is not None:
+        return data[dist.get_rank(group)::spec.n_shards].clone()
     inv = np.empty(spec.n_pages, np.int64)
     inv[_page_perm(spec)] = np.arange(spec.n_pages)
     return data.index_select(0, torch.as_tensor(inv, device=data.device))

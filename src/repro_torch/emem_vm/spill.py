@@ -17,7 +17,10 @@ parked Python reference:
   * default: an in-memory ``dict[frame, bytes]`` (the "remote memory"
     flavor -- still serialized, so the byte accounting is real);
   * with ``path``: one file per spill frame under that directory (the
-    "disk" flavor), surviving the Python objects that created them.
+    "disk" flavor), surviving the Python objects that created them.  In a
+    process group of several ranks each rank spills under its own
+    subdirectory ``rank<r>``: the ranks hold replicas of one store and
+    must never share a file.
 
 Keys are spill-frame ids from the :class:`FrameAllocator`'s spill id space;
 the allocator owns *which* frames are live, this store owns their bytes.
@@ -26,6 +29,8 @@ from __future__ import annotations
 
 import os
 import pickle
+
+import torch.distributed as dist
 
 
 class SpillStore:
@@ -40,6 +45,9 @@ class SpillStore:
         self.counters = {"writes": 0, "reads": 0,
                          "bytes_written": 0, "bytes_read": 0}
         if path is not None:
+            if dist.is_initialized() and dist.get_world_size() > 1:
+                path = self.path = os.path.join(path,
+                                                f"rank{dist.get_rank()}")
             os.makedirs(path, exist_ok=True)
 
     # -- bytes movement --------------------------------------------------------

@@ -5,9 +5,15 @@
 the page table (:mod:`repro_torch.emem_vm.page_table`), consult the
 per-requester hot-page cache (:mod:`repro_torch.emem_vm.cache`), and fall
 through to the emulated memory (:mod:`repro_torch.core.emem`) on miss --
-``read_ref``/``write_ref`` on one unsharded store, or, with
-``sharded=True``, the emulated-shard ``read``/``write`` (the reference's
-mesh collectives, one K7 launch per read).
+``read_ref``/``write_ref`` on one unsharded store, with ``sharded=True``
+the emulated-shard ``read``/``write`` (the reference's mesh collectives,
+one K7 launch per read), or, built with a ``mesh``, the process-group
+``read``/``write``: each rank of the ``axes`` group holds its block of the
+store and issues its chunk of every padded batch, and the chunks' results
+are gathered, so every rank sees the whole batch as the reference's global
+array is seen from every device.  The page table, the allocator, the cache
+and the host and spill tiers are replicated on every rank, and every rank
+makes the same calls.
 
 Semantics (mirroring EMem's drop rules):
   * reads of unmapped / non-readable pages return zeros;
@@ -27,8 +33,10 @@ Semantics (mirroring EMem's drop rules):
 
 Whole pages -- the cache fill and the swap-out -- are read with one K6
 launch on the frames' rows where the reference's slot read cannot drop a
-request (an unsharded store, or ``cap_factor >= n_shards``, the default);
-otherwise they take the reference's slot route.  The bits are the same.
+request (an unsharded store, or ``cap_factor >= n_shards``, the default;
+over a group each owner reads its own frames' local rows and the pages
+are gathered); otherwise they take the reference's slot route.  The bits
+are the same.
 
 The access path lives in the functions :func:`read_step` /
 :func:`write_step` (state in, state out; the store and the cache are
@@ -40,6 +48,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import emem
 from repro_torch.device import resolve_device
@@ -49,6 +58,7 @@ from repro_torch.emem_vm.cache import CacheSpec, HotPageCache
 from repro_torch.emem_vm.layout import frame_rows
 from repro_torch.emem_vm.spill import SpillStore
 from repro_torch.kernels.paged_decode import gather_ops
+from repro_torch.parallel import mesh_ctx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,8 +127,18 @@ def _pad_addrs(cfg: VMConfig, addrs: torch.Tensor,
     return addrs, values, n
 
 
+def _chunk(cfg: VMConfig, group, x: torch.Tensor) -> torch.Tensor:
+    """This rank's chunk of a padded batch."""
+    return x.view(cfg.spec.n_shards, -1, *x.shape[1:])[dist.get_rank(group)]
+
+
 def _mem_read(cfg: VMConfig, sharded: bool, data: torch.Tensor,
-              addrs: torch.Tensor) -> torch.Tensor:
+              addrs: torch.Tensor, group=None) -> torch.Tensor:
+    if group is not None:
+        addrs, _, n = _pad_addrs(cfg, addrs, None)
+        out = emem.read(cfg.spec, data, _chunk(cfg, group, addrs),
+                        cfg.cap_factor, group=group)
+        return mesh_ctx.all_gather(out, group).view(-1, cfg.spec.width)[:n]
     if not sharded:
         return emem.read_ref(cfg.spec, data, addrs)
     addrs, _, n = _pad_addrs(cfg, addrs, None)
@@ -126,7 +146,13 @@ def _mem_read(cfg: VMConfig, sharded: bool, data: torch.Tensor,
 
 
 def _mem_write(cfg: VMConfig, sharded: bool, data: torch.Tensor,
-               addrs: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+               addrs: torch.Tensor, values: torch.Tensor,
+               group=None) -> torch.Tensor:
+    if group is not None:
+        addrs, values, _ = _pad_addrs(cfg, addrs, values)
+        return emem.write(cfg.spec, data, _chunk(cfg, group, addrs),
+                          _chunk(cfg, group, values), cfg.cap_factor,
+                          group=group)
     if not sharded:
         return emem.write_ref(cfg.spec, data, addrs, values)
     addrs, values, _ = _pad_addrs(cfg, addrs, values)
@@ -134,18 +160,27 @@ def _mem_write(cfg: VMConfig, sharded: bool, data: torch.Tensor,
 
 
 def _mem_read_pages(cfg: VMConfig, sharded: bool, data: torch.Tensor,
-                    frames: torch.Tensor) -> torch.Tensor:
+                    frames: torch.Tensor, group=None) -> torch.Tensor:
     """Whole frames [n] -> [n, page_slots, width]: one K6 launch on the
-    frames' rows where the slot read of every lane cannot drop, else the
+    frames' rows where the slot read of every lane cannot drop (over a
+    group, on the rows each owner holds, then gathered), else the
     reference's slot read."""
     spec = cfg.spec
-    if not sharded or cfg.cap_factor >= spec.n_shards:
+    if group is not None and cfg.cap_factor >= spec.n_shards:
+        rows = frame_rows(frames, spec.n_pages, spec.n_shards)
+        owner = rows // spec.pages_per_shard
+        mine = torch.where(owner == dist.get_rank(group),
+                           rows % spec.pages_per_shard, -1)
+        pages = mesh_ctx.all_gather(gather_ops.gather_pages(data, mine), group)
+        return pages[owner, torch.arange(frames.shape[0],
+                                         device=frames.device)]
+    if group is None and (not sharded or cfg.cap_factor >= spec.n_shards):
         rows = (frame_rows(frames, spec.n_pages, spec.n_shards) if sharded
                 else frames)
         return gather_ops.gather_pages(data, rows)
     lane = torch.arange(spec.page_slots, device=frames.device)
     addrs = (frames[:, None] * spec.page_slots + lane).reshape(-1)
-    return _mem_read(cfg, sharded, data, addrs).view(
+    return _mem_read(cfg, sharded, data, addrs, group).view(
         -1, spec.page_slots, spec.width)
 
 
@@ -154,7 +189,7 @@ def _mem_read_pages(cfg: VMConfig, sharded: bool, data: torch.Tensor,
 # ---------------------------------------------------------------------------
 def read_step(cfg: VMConfig, sharded: bool, entries: torch.Tensor,
               data: torch.Tensor, cache: dict | None, addrs,
-              requester: int = 0):
+              requester: int = 0, group=None):
     """Virtual read.  Returns (out [R, width], data', cache')."""
     ps = cfg.spec.page_slots
     addrs = torch.as_tensor(addrs, device=data.device)
@@ -163,12 +198,12 @@ def read_step(cfg: VMConfig, sharded: bool, entries: torch.Tensor,
 
     cspec = cfg.cache_spec()
     if cspec is None or cache is None:
-        out = _mem_read(cfg, sharded, data, phys)
+        out = _mem_read(cfg, sharded, data, phys, group)
         return out.masked_fill(~readable[:, None], 0), data, cache
 
     cache_vals, hit = HotPageCache.lookup(cspec, cache, requester, frames,
                                           offsets)
-    mem_vals = _mem_read(cfg, sharded, data, phys)
+    mem_vals = _mem_read(cfg, sharded, data, phys, group)
     out = torch.where((hit & readable)[:, None], cache_vals, mem_vals)
     out = out.masked_fill(~readable[:, None], 0)
     cache = HotPageCache.count(cspec, cache, requester, hit, readable)
@@ -182,16 +217,17 @@ def read_step(cfg: VMConfig, sharded: bool, entries: torch.Tensor,
     wb_addrs = (torch.where(needs_wb, victim_tag.long(), cfg.trash_frame)
                 [:, None] * ps + lane).reshape(-1)
     data = _mem_write(cfg, sharded, data, wb_addrs,
-                      victim_pages.reshape(-1, cfg.spec.width))
+                      victim_pages.reshape(-1, cfg.spec.width), group)
     pages = _mem_read_pages(cfg, sharded, data,
-                            torch.where(chosen >= 0, chosen, cfg.trash_frame))
+                            torch.where(chosen >= 0, chosen, cfg.trash_frame),
+                            group)
     cache = HotPageCache.apply_fill(cspec, cache, requester, chosen, pages)
     return out, data, cache
 
 
 def write_step(cfg: VMConfig, sharded: bool, entries: torch.Tensor,
                data: torch.Tensor, cache: dict | None, addrs, values,
-               requester: int = 0):
+               requester: int = 0, group=None):
     """Virtual write.  Returns (data', cache')."""
     ps = cfg.spec.page_slots
     addrs = torch.as_tensor(addrs, device=data.device)
@@ -202,7 +238,7 @@ def write_step(cfg: VMConfig, sharded: bool, entries: torch.Tensor,
     cspec = cfg.cache_spec()
     if cspec is None or cache is None:
         safe = torch.where(writable, phys, cfg.trash_addr)
-        return _mem_write(cfg, sharded, data, safe, values), cache
+        return _mem_write(cfg, sharded, data, safe, values, group), cache
 
     _, hit = HotPageCache.lookup(cspec, cache, requester, frames, offsets)
     cache = HotPageCache.write_hits(cspec, cache, requester, frames, offsets,
@@ -210,7 +246,7 @@ def write_step(cfg: VMConfig, sharded: bool, entries: torch.Tensor,
     cache = HotPageCache.count(cspec, cache, requester, hit, writable)
     # no-write-allocate: misses go straight to the emulated memory
     safe = torch.where(writable & ~hit, phys, cfg.trash_addr)
-    data = _mem_write(cfg, sharded, data, safe, values)
+    data = _mem_write(cfg, sharded, data, safe, values, group)
     return data, cache
 
 
@@ -222,14 +258,20 @@ class EMemVM:
     (``cuda`` unless the caller names another).  ``sharded=True`` spreads
     the store over ``cfg.spec.n_shards`` emulated shards (physical page
     order, :func:`repro_torch.core.emem.to_logical` gives the logical one),
-    as the reference's ``mesh=`` does over devices."""
+    as the reference's ``mesh=`` does over devices.  ``mesh`` (a
+    ``DeviceMesh``) spreads it over the ranks of its ``axes``, one block
+    per rank (``self.data``), as the reference's ``mesh=`` does; every rank
+    builds the VM and makes each call together."""
 
-    def __init__(self, cfg: VMConfig, sharded: bool = False, device=None):
+    def __init__(self, cfg: VMConfig, sharded: bool = False, device=None, *,
+                 mesh=None, axes=("data",)):
         self.cfg = cfg
-        self.sharded = sharded
         self.device = resolve_device(device)
+        self.group = (None if mesh is None
+                      else mesh_ctx.axes_group(mesh, tuple(axes)))
+        self.sharded = sharded or mesh is not None
         spec = cfg.spec
-        self.data = emem.create(spec, self.device)
+        self.data = emem.create(spec, self.device, group=self.group)
         # usable frames exclude the trash frame (spec.n_pages - 1)
         self.allocator = FrameAllocator(spec.n_pages - 1)
         self.page_table = pt_mod.PageTable(cfg.n_vpages, spec.page_slots,
@@ -308,7 +350,8 @@ class EMemVM:
             self.cache = HotPageCache.invalidate_frame(
                 self.cfg.cache_spec(), self.cache, frame)
         page = _mem_read_pages(self.cfg, self.sharded, self.data,
-                               torch.tensor([frame], device=self.device))[0]
+                               torch.tensor([frame], device=self.device),
+                               self.group)[0]
         self._host_pages[vpage] = page.cpu()
         if self._spill is not None:
             while len(self._host_pages) > self.cfg.n_host_pages:
@@ -336,7 +379,7 @@ class EMemVM:
             page, from_spill = self._spill.get(vpage), True
         self.data = _mem_write(self.cfg, self.sharded, self.data,
                                self._frame_slots(frame),
-                               page.to(self.device))
+                               page.to(self.device), self.group)
         self.page_table.restore(vpage, frame)
         if from_spill:
             self._spill.drop(vpage)
@@ -397,14 +440,14 @@ class EMemVM:
         self._fault_in(addrs)
         out, self.data, self.cache = read_step(
             self.cfg, self.sharded, self.page_table.entries, self.data,
-            self.cache, addrs, requester)
+            self.cache, addrs, requester, self.group)
         return out
 
     def vwrite(self, addrs, values, requester: int = 0) -> None:
         self._fault_in(addrs)
         self.data, self.cache = write_step(
             self.cfg, self.sharded, self.page_table.entries, self.data,
-            self.cache, addrs, values, requester)
+            self.cache, addrs, values, requester, self.group)
 
     # -- cache maintenance ----------------------------------------------------
     def _writeback_frame(self, frame: int) -> None:
@@ -419,7 +462,8 @@ class EMemVM:
             if tags[req] == frame and dirty[req]:
                 self.data = _mem_write(self.cfg, self.sharded, self.data,
                                        self._frame_slots(frame),
-                                       self.cache["data"][req, sets])
+                                       self.cache["data"][req, sets],
+                                       self.group)
 
     def flush(self) -> None:
         """Write back every dirty line and mark the whole cache clean."""
@@ -434,7 +478,8 @@ class EMemVM:
             addrs = (torch.where(dirty, tags.long(), self.cfg.trash_frame)
                      [:, None] * ps + lane).reshape(-1)
             self.data = _mem_write(self.cfg, self.sharded, self.data, addrs,
-                                   pages.reshape(-1, self.cfg.spec.width))
+                                   pages.reshape(-1, self.cfg.spec.width),
+                                   self.group)
             self.cache = HotPageCache.mark_clean(cspec, self.cache, req)
 
     # -- introspection --------------------------------------------------------

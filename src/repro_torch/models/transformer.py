@@ -45,6 +45,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import mesh_ctx
 from repro_torch.tree import unstack
 
 
@@ -223,6 +224,17 @@ def lm_loss(cfg: ModelConfig, params, batch: dict,
 # ---------------------------------------------------------------------------
 # Caches
 # ---------------------------------------------------------------------------
+def _kv_shards(n_pages: int) -> int:
+    """The mesh context's kv shards (1 without one); a pool of
+    ``n_pages`` must split evenly over them."""
+    ctx = mesh_ctx.get_context()
+    n = 1 if ctx is None else ctx.n_kv_shards
+    if n_pages % n:
+        raise ValueError(f"a pool of {n_pages} pages does not split over "
+                         f"{n} kv shards")
+    return n
+
+
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device,
                dtype=None) -> dict:
     """Zero cache.  Attention block positions: batch layout ``{"k", "v"}``
@@ -231,7 +243,9 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device,
     BlockManager translation tables ``cache["vm"]`` shared by every
     attention layer (only when there is one); "paged" starts from the
     identity tables (slot b owns frames b*max_pages..), "pooled" starts
-    empty.  Mamba2 block positions: ``conv`` [n_periods, B, conv-1,
+    empty.  Under a mesh context (:mod:`repro_torch.parallel.mesh_ctx`)
+    the pages are this rank's block, ``n_pages / n_kv_shards`` of them,
+    and the tables stay global.  Mamba2 block positions: ``conv`` [n_periods, B, conv-1,
     d_inner + 2GN] in the compute dtype and ``ssd`` [n_periods, B, H, N, P]
     in f32."""
     _check_decoder(cfg)
@@ -248,7 +262,8 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device,
         else:
             n_pages = batch_size * max_pages
         names = ("k_pages", "v_pages")
-        shape = (cfg.n_periods, n_pages, slots, cfg.n_kv_heads, cfg.hd)
+        shape = (cfg.n_periods, n_pages // _kv_shards(n_pages), slots,
+                 cfg.n_kv_heads, cfg.hd)
     else:
         names = ("k", "v")
         shape = (cfg.n_periods, batch_size, cfg.n_kv_heads, max_len, cfg.hd)

@@ -1,0 +1,1 @@
+from repro_torch.parallel import mesh_ctx, sharding  # noqa: F401

@@ -1,6 +1,7 @@
-"""Port hygiene: the PyTorch package, chip_smoke.py, the port's benchmark
-and its serve and train examples import neither JAX nor the reference
-package (nor the reference's benchmark modules), the entry points refuse
+"""Port hygiene: the PyTorch package, chip_smoke.py, the port's benchmark,
+its serve and train examples and the rank bodies the multi-rank tests
+spawn import neither JAX nor the reference package (nor the reference's
+benchmark modules), the entry points refuse
 to fall back to the CPU silently when no CUDA device is present, the
 kernel packages export the reference's public names, and every kernel
 wrapper refuses a grad-requiring input before its launch."""
@@ -17,7 +18,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "benchmarks" / "vm_bench_torch.py",
     ROOT / "examples" / "serve_lm_torch.py",
-    ROOT / "examples" / "train_lm_torch.py"]
+    ROOT / "examples" / "train_lm_torch.py",
+    ROOT / "tests" / "torch_mesh_ranks.py"]
 #: the reference's benchmark modules, which import JAX
 REFERENCE_BENCHMARKS = ("benchmarks.vm_bench", "benchmarks.kernel_bench")
 
