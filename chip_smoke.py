@@ -20,8 +20,10 @@ jamba-v0.1-52b, and qwen2-vl-7b fed frame embeddings) at their published
 widths, served through K1 and K2, with K3 and K5 in their prefills; then
 the encoder-decoder seamless-m4t-medium (K3 in its encoder and
 cross-attention, K1 and K4 in its decoder's self-attention); then
-training on the plain paths (qwen3-0.6b and seamless-m4t-medium).  Each
-phase prints one JSON line with its seconds (phase archs one per arch):
+training on the plain paths (qwen3-0.6b and seamless-m4t-medium), on one
+card and on a world-1 NCCL mesh; then the paper's analytic models and the
+examples built on them.  Each phase prints one JSON line with its seconds
+(phase archs one per arch):
 
 1. build      -- nvcc builds the five kernel libraries from the checkout's
                  sources, all at once: paged decode (K1, whose entries are
@@ -213,7 +215,20 @@ phase prints one JSON line with its seconds (phase archs one per arch):
                  bit, 2 microbatches match 1; seamless-m4t-medium takes
                  two finite, falling steps; the kernels' grad guard
                  raises for K3 and K5; step ms, tokens/s, the compute
-                 bound's share and peak memory.
+                 bound's share and peak memory;
+20. mesh_train -- phase train's qwen3-0.6b for MESH_TRAIN_STEPS steps by
+                 the one-card Trainer and by Trainer on a (1, 1) ("data",
+                 "model") mesh of an NCCL group of one rank (fsdp_tp, the
+                 state as DTensors): losses, grad norms and every weight
+                 bit for bit; the mesh's checkpoint restored onto one card
+                 bit for bit; step wall and device ms, collectives per
+                 step and peak memory of both; the group destroyed;
+21. paper     -- benchmarks/figs_torch.py's rows (the reference's Figs.
+                 5-13 and §7.3 through repro_torch.core) held to the
+                 paper's headline claims, Fig. 10's slowdowns at 4096
+                 tiles printed on a line of their own, and the examples
+                 emulated_memory_demo_torch and quickstart_torch on the
+                 card (quickstart trains on a world-1 NCCL mesh).
 
 Then it prints the kernels' JSON line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -2388,8 +2403,8 @@ def emem_store(dev, seed: int, dtype=None):
 def same_bits(a, b) -> bool:
     import torch
     return (a.shape == b.shape and a.dtype == b.dtype
-            and torch.equal(a.contiguous().view(torch.uint8),
-                            b.contiguous().view(torch.uint8)))
+            and torch.equal(a.contiguous().reshape(-1).view(torch.uint8),
+                            b.contiguous().reshape(-1).view(torch.uint8)))
 
 
 def check_gathers(pages, slots, ids, what):
@@ -4049,13 +4064,14 @@ def train_cfg(arch: str, **kw):
         "remat": "block", **kw})
 
 
-def trainer_for(cfg, dev, microbatches: int = 1, seed: int = 0):
-    """A Trainer of ``cfg`` on ``dev`` with the phase's schedule, and its
-    initial (params, opt) from ``seed``."""
+def trainer_for(cfg, dev, microbatches: int = 1, seed: int = 0, mesh=None):
+    """A Trainer of ``cfg`` on ``dev`` (on ``mesh`` where one is given)
+    with the phase's schedule, and its initial (params, opt) from
+    ``seed``."""
     from repro_torch.models.model import Model
     from repro_torch.optim import AdamWConfig, schedules
     from repro_torch.train.trainer import TrainConfig, Trainer
-    trainer = Trainer(Model(cfg, device=dev, seed=seed), AdamWConfig(
+    trainer = Trainer(Model(cfg, device=dev, seed=seed), mesh, AdamWConfig(
         lr=schedules.warmup_cosine(3e-3, 5, TRAIN_STEPS)),
         TrainConfig(microbatches=microbatches))
     return (trainer, *trainer.init_state(seed))
@@ -4231,11 +4247,287 @@ def phase_train(dev):
     return res
 
 
+# -- phase 20 ------------------------------------------------------------------
+
+#: phase mesh_train's steps (phase train's model, data and schedule), and
+#: the steps each trainer then takes in turns for their wall times
+MESH_TRAIN_STEPS, MESH_TIMING_PAIRS = 5, 3
+
+
+def step_profile(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: its device ms (every kernel
+    and copy), device ops, and the NCCL kernels among them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise AssertionError("the profiler saw no device time in a step")
+    return {"device_ms": sum(e.device_time_total for e in dev) / 1e3,
+            "device_ops": len(dev),
+            "nccl_kernels": sum("nccl" in e.name.lower() for e in dev)}
+
+
+def phase_mesh_train(dev):
+    """Training on a mesh at world 1: an NCCL process group of one rank and
+    a (1, 1) ("data", "model") DeviceMesh under the ``fsdp_tp`` rules,
+    phase train's qwen3-0.6b (full width, bf16 with f32 masters, remat
+    "block", 8 x 512, the same schedule) for MESH_TRAIN_STEPS steps, torch's
+    deterministic algorithms on: every step's loss and grad norm and every
+    final weight (the model's tensors, and the gathered DTensor state)
+    equal the one-device trainer's over the same steps bit for bit; the
+    state checkpointed from the mesh (async, rank 0 writing) and restored
+    by ``elastic_restore`` onto one device equals the one-device state bit
+    for bit.  Then MESH_TIMING_PAIRS more steps of each, in turns (one
+    card, mesh), still bit for bit: their wall ms, and one profiled step
+    of each (device ms and ops, the NCCL kernels the card ran).  Reports
+    the collectives a step issues, the memory each run's state holds and
+    its peak above that, and the seconds of each part.  The group is
+    destroyed at the end."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+    from repro_torch.train import trainer as T
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.fault_tolerance import elastic_restore
+    from repro_torch.tree import flatten, unflatten
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="mesh_ckpt_",
+                                dir=os.path.join(ROOT, "build"))
+    store = os.path.join(ROOT, "build", f"mesh_train_store_{os.getpid()}")
+    if os.path.exists(store):
+        os.remove(store)
+    cfg = train_cfg("qwen3-0.6b")
+    data = SyntheticLM(cfg, DataConfig(TRAIN_B, TRAIN_S, seed=0))
+    res = {"steps": MESH_TRAIN_STEPS, "batch": [TRAIN_B, TRAIN_S],
+           "rules": "fsdp_tp", "mesh": {"data": 1, "model": 1}}
+    parts = res["part_s"] = {}
+    clock = [time.monotonic()]
+
+    def part(name):
+        now = time.monotonic()
+        parts[name] = now - clock[0]
+        clock[0] = now
+
+    def measured_run(trainer, params, opt, base, hooks=None):
+        """The steps, with the memory the run's state holds above ``base``
+        (what was allocated before its trainer) and the run's peak above
+        that."""
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        params, opt, hist = trainer.run(params, opt, iter(data),
+                                        MESH_TRAIN_STEPS, hooks)
+        mem = {"state_bytes": held - base,
+               "peak_above_state_bytes":
+                   torch.cuda.max_memory_allocated(dev) - held}
+        return params, opt, hist, mem
+
+    def summary(hist, mem):
+        return {"loss": [h["loss"] for h in hist],
+                "grad_norm": [h["grad_norm"] for h in hist],
+                "step_ms": [h["step_time_s"] * 1e3 for h in hist],
+                "memory": mem}
+    try:
+        # one device: the reference run
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        one, p1, o1 = trainer_for(cfg, dev)
+        p1, o1, hist_one, mem_one = measured_run(one, p1, o1, base)
+        res["one_device"] = summary(hist_one, mem_one)
+        part("one_device")
+        # the mesh
+        res["backend"] = init_process_group(dev, rank=0, world_size=1,
+                                            init_method=f"file://{store}")
+        mesh = make_host_mesh(device=dev)
+        if res["backend"] != "nccl" or dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}")
+        part("group_start")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        trainer, params, opt = trainer_for(cfg, dev, mesh=mesh)
+        placed = flatten({"params": params, "opt": opt})
+        if not all(isinstance(v, DTensor) for v in placed.values()):
+            raise AssertionError("the mesh trainer's state is not DTensors")
+        del placed
+        ckpt = CheckpointManager(ckpt_dir)
+        save = [lambda step, p, o, m: ckpt.save(step, {"params": p, "opt": o})
+                if step == MESH_TRAIN_STEPS else None]
+        T.reset_calls()
+        params, opt, hist, mem = measured_run(trainer, params, opt, base,
+                                              save)
+        calls = dict(T.CALLS)
+        ckpt.wait()
+        part("mesh_steps_and_save")
+        want = flatten({"params": p1, "opt": o1})
+        same_steps = [a["loss"] == b["loss"]
+                      and a["grad_norm"] == b["grad_norm"]
+                      for a, b in zip(hist, hist_one)]
+        model_equal = all(same_bits(v, want[f"params/{k}"]) for k, v in
+                          flatten(trainer.model.param_tree()).items())
+        state = flatten({"params": params, "opt": opt})
+        state_equal = all(same_bits(v.full_tensor(), want[k])
+                          for k, v in state.items())
+        res["mesh"] = {**summary(hist, mem),
+                       "steps_equal_bits": same_steps,
+                       "weights_equal_bits": model_equal,
+                       "state_equal_bits": state_equal,
+                       "collectives": calls,
+                       "collectives_per_step":
+                           sum(calls.values()) / MESH_TRAIN_STEPS}
+        if not (all(same_steps) and model_equal and state_equal):
+            raise AssertionError(
+                f"mesh training differs from one device: steps {same_steps}, "
+                f"weights {model_equal}, state {state_equal}")
+        # the checkpoint from the mesh, onto one device
+        like = unflatten({"params": params, "opt": opt},
+                         {k: torch.zeros(()) for k in state})
+        restored, step = elastic_restore(CheckpointManager(ckpt_dir), like,
+                                         dev)
+        back = flatten(restored)
+        restored_equal = step == MESH_TRAIN_STEPS and all(
+            same_bits(back[k], want[k]) for k in want)
+        res["restored_on_one_device_equal_bits"] = restored_equal
+        if not restored_equal:
+            raise AssertionError("the mesh checkpoint restored onto one "
+                                 "device differs")
+        del restored, back, want, state
+        torch.cuda.empty_cache()
+        part("compare_and_restore")
+        # in turns, on the same batches: wall ms, then one profiled step
+        walls = {"one_device": [], "mesh": []}
+        for i in range(MESH_TIMING_PAIRS):
+            batch = data.global_batch(MESH_TRAIN_STEPS + i)
+            p1, o1, a = one.run(p1, o1, iter([batch]), 1)
+            params, opt, b = trainer.run(params, opt, iter([batch]), 1)
+            if (a[0]["loss"], a[0]["grad_norm"]) != (b[0]["loss"],
+                                                    b[0]["grad_norm"]):
+                raise AssertionError(f"timing pair {i} differs")
+            walls["one_device"].append(a[0]["step_time_s"] * 1e3)
+            walls["mesh"].append(b[0]["step_time_s"] * 1e3)
+        batch = data.global_batch(MESH_TRAIN_STEPS + MESH_TIMING_PAIRS)
+        for name, (tr, p, o) in (("one_device", (one, p1, o1)),
+                                 ("mesh", (trainer, params, opt))):
+            res[name]["paired_step_ms"] = walls[name]
+            res[name]["profiled_step"] = step_profile(
+                lambda: tr.run(p, o, iter([batch]), 1))
+        part("paired_and_profiled")
+        del trainer, params, opt, one, p1, o1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        torch.use_deterministic_algorithms(det)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        if os.path.exists(store):
+            os.remove(store)
+        torch.cuda.empty_cache()
+    if dist.is_initialized():
+        raise AssertionError("the process group outlived phase mesh_train")
+    return res
+
+
+# -- phase 21 ------------------------------------------------------------------
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_paper(dev):
+    """The paper's analytic models on the card's machine (no JAX):
+    ``benchmarks/figs_torch.py``'s rows of Figs. 5-13 and §7.3 (176 rows
+    with the reference modules' names), held to the paper's headline
+    claims (the DDR3 35 ns baseline; the folded Clos at 2-5x DDR3 from 512
+    tiles; Dhrystone and the compiler at 1.8-3.0x over a 1024- and a
+    4096-tile machine, a speed-up at 16 tiles); then the two examples on
+    the card: ``emulated_memory_demo_torch`` (the analytic sweep and a
+    64-hop pointer chase through EMem) and ``quickstart_torch`` (the
+    paper's numbers, an EMem read after write, and a tiny LM trained 10
+    steps by ``Trainer`` on a world-1 NCCL mesh, its loss falling).
+    Prints Fig. 10's slowdowns at 4096 tiles on a line of its own."""
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from benchmarks import figs_torch
+    from repro_torch.core import dram, emulation, latency
+    t = time.monotonic()
+    rows = figs_torch.rows()
+    res = {"rows": len(rows), "rows_s": time.monotonic() - t}
+    names = [r["name"] for r in rows]
+    if len(rows) != 176 or len(set(names)) != 176:
+        raise AssertionError(f"{len(rows)} figure rows")
+    base = dram.paper_baseline(1)
+    failed = []
+    if abs(base - 35.0) > 2.0:
+        failed.append("ddr3 baseline")
+    fig10 = {}
+    for system in (1024, 4096):
+        lat = latency.fig9_sweep(system)
+        if not all(2.0 <= c / base <= 5.0 for n, c in
+                   zip(lat["sizes"], lat["clos"]) if n >= 512):
+            failed.append(f"clos latency at {system}")
+        sw = emulation.fig10_sweep(system)
+        fig10[system] = {k: v[-1] for k, v in sw.items() if k != "sizes"}
+        for mix in ("dhrystone", "compiler"):
+            if not 1.8 <= sw[f"clos/{mix}"][-1] <= 3.0 \
+                    or sw[f"clos/{mix}"][0] >= 1.0:
+                failed.append(f"{mix} slowdown at {system}")
+    res["ddr3_ns"] = base
+    res["fig10_full_machine"] = fig10
+    res["rows_fig10_4096"] = [r for r in rows
+                              if r["name"] == "fig10/4096sys/4096t"]
+    f = fig10[4096]
+    print(f"paper: Fig. 10 at 4096 tiles (folded Clos): Dhrystone "
+          f"{f['clos/dhrystone']:.2f}x, compiler {f['clos/compiler']:.2f}x "
+          f"(paper 2-3x); 2D mesh {f['mesh/dhrystone']:.2f}x, "
+          f"{f['mesh/compiler']:.2f}x", flush=True)
+    t = time.monotonic()
+    demo = load_example("emulated_memory_demo_torch").main(
+        ["--device", str(dev)])
+    res["demo"] = {"slowdown": demo["slowdown"],
+                   "distinct": demo["emem"]["distinct"],
+                   "seconds": time.monotonic() - t}
+    t = time.monotonic()
+    quick = load_example("quickstart_torch").main(["--device", str(dev)])
+    loss = quick["training"]["loss"]
+    res["quickstart"] = {"ddr3_ns": quick["ddr3_ns"],
+                         "clos_ns": quick["clos_ns"],
+                         "dhrystone_slowdown": quick["dhrystone_slowdown"],
+                         "emem_max_err": quick["emem_max_err"],
+                         "training": quick["training"],
+                         "seconds": time.monotonic() - t}
+    if quick["emem_max_err"] != 0.0:
+        failed.append("quickstart EMem read after write")
+    if quick["training"]["backend"] != "nccl" or not loss[-1] < loss[0]:
+        failed.append("quickstart training")
+    if dist.is_initialized():
+        failed.append("quickstart left its group running")
+    if failed:
+        emit({"phase": "paper", "failed": failed, **res})
+        raise AssertionError(f"phase paper failed: {failed}")
+    return res
+
+
 # -- main -----------------------------------------------------------------------
 
 PHASES = ("build,kernels,teacher,profile,serve,tokens,flash,prefill,batch,"
           "ssd,ssm_prefill,ssm_serve,gather,emem,vm,mesh,vm_bench,archs,"
-          "encdec,train")
+          "encdec,train,mesh_train,paper")
 #: the kernels' libraries, sources and the TPU kernels they replace
 KERNELS = (
     ("paged_kv_write", "k1", "src/repro_torch/kernels/paged_decode/csrc/"
@@ -4427,6 +4719,10 @@ def main(argv=None) -> int:
         emit({"phase": "encdec", "seconds": time.monotonic() - t, **res})
     if "train" in phases:
         run("train", phase_train, dev)
+    if "mesh_train" in phases:
+        run("mesh_train", phase_mesh_train, dev)
+    if "paper" in phases:
+        run("paper", phase_paper, dev)
 
     def ms(key):
         # the device time of timed(); the event-timed loop where neither

@@ -4,25 +4,64 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --smoke --steps 20 --batch 8 --seq 128 --device cpu
 
-runs on ``cuda`` unless ``--device`` names another device.  Features
-exercised: the deterministic data pipeline, init from a seed, AdamW with
-master weights, microbatching, checkpoint/restore (``--ckpt-dir``),
-straggler logging.  Training takes the plain paths (``attn_impl``
-"chunked", the configs' default).  Prints the reference's final JSON
-(``first_loss``, ``last_loss``, ``improved``, ``stragglers``).
+runs on ``cuda`` unless ``--device`` names another device.  Started by
+``torchrun`` (``RANK`` and ``WORLD_SIZE`` in the environment) it trains on a
+``(world / tp, tp)`` ("data", "model") mesh over the started group, ``nccl``
+on ``cuda`` and ``gloo`` only with ``--device cpu``:
+
+  PYTHONPATH=src torchrun --nproc_per_node 4 -m repro_torch.launch.train \\
+      --smoke --tp 2 --device cpu
+
+Without that environment it trains on one device and refuses ``--tp`` above
+1.  Features exercised: the deterministic data pipeline, init from a seed
+(each rank keeps its shards), AdamW with master weights, microbatching,
+checkpoint/restore (``--ckpt-dir``), straggler logging.  Training takes the
+plain paths (``attn_impl`` "chunked", the configs' default).  Prints the
+reference's final JSON (``first_loss``, ``last_loss``, ``improved``,
+``stragglers``), from rank 0 on a mesh.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.data import DataConfig, SyntheticLM
+from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import (init_process_group, make_host_mesh,
+                                     mesh_shape)
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig, schedules
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.fault_tolerance import StragglerDetector
 from repro_torch.train.trainer import TrainConfig, Trainer
+
+
+def mesh_from_env(device=None, tp: int = 1):
+    """``(device, mesh, started)``.  Under ``torchrun`` (``RANK`` and
+    ``WORLD_SIZE`` set) the default group is started for ``device`` unless
+    it runs already (``started`` says whether this call started it), each
+    rank on its own card (``LOCAL_RANK``), and the mesh is
+    :func:`make_host_mesh`'s ``(world / tp, tp)``.  Without that
+    environment: one device, no mesh, and ``tp`` must be 1."""
+    dev = resolve_device(device)
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        if tp != 1:
+            raise ValueError(f"--tp {tp} needs ranks: start the driver under "
+                             "torchrun")
+        return dev, None, False
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
+    started = not dist.is_initialized()
+    if started:
+        init_process_group(dev, rank=rank, world_size=world,
+                           init_method="env://")
+    return dev, make_host_mesh(tp=tp, device=dev), started
 
 
 def main(argv=None) -> dict:
@@ -38,23 +77,32 @@ def main(argv=None) -> dict:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor parallelism: only 1 until the port has "
-                         "sharding and meshes (ROADMAP Queue 1)")
+                    help="ranks of the mesh's \"model\" axis (under "
+                         "torchrun)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.tp != 1:
-        ap.error("--tp > 1 needs the port's sharding (ROADMAP Queue 1)")
+    dev, mesh, started = mesh_from_env(args.device, args.tp)
+    try:
+        return _train(args, dev, mesh)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
+
+def _train(args, dev, mesh) -> dict:
+    lead = mesh is None or dist.get_rank() == 0
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    model = Model(cfg, device=args.device, seed=args.seed)
-    print(f"arch={cfg.name} params={model.param_count():,} "
-          f"device={model.device}")
+    model = Model(cfg, device=dev, seed=args.seed)
+    if lead:
+        shape = None if mesh is None else mesh_shape(mesh)
+        print(f"arch={cfg.name} params={model.param_count():,} "
+              f"device={model.device} mesh={shape}")
 
     ocfg = AdamWConfig(lr=schedules.warmup_cosine(args.lr, 5, args.steps))
     tcfg = TrainConfig(microbatches=args.microbatches)
-    trainer = Trainer(model, ocfg, tcfg)
+    trainer = Trainer(model, mesh, ocfg, tcfg)
     params, opt = trainer.init_state(args.seed)
 
     data = SyntheticLM(cfg, DataConfig(args.batch, args.seq, seed=args.seed))
@@ -76,7 +124,8 @@ def main(argv=None) -> dict:
     first, last = history[0]["loss"], history[-1]["loss"]
     report = {"first_loss": first, "last_loss": last,
               "improved": last < first, "stragglers": straggler.flagged}
-    print(json.dumps(report, indent=1))
+    if lead:
+        print(json.dumps(report, indent=1))
     return report
 
 

@@ -4,8 +4,20 @@ SwiGLU MLP and the embedding (a port of ``repro.models.layers``).
 
 Parameters are nested dicts of tensors (or the ``nn.ParameterDict``s of
 :class:`repro_torch.models.model.Model`, which index the same way).
-``*_defs(cfg)`` return matching nested dicts of :class:`ParamDef`, from
-which the model draws its weights with the reference's distributions.
+``*_defs(cfg)`` return matching nested dicts of :class:`ParamDef` (shape,
+logical axes, initializer), from which the model draws its weights with the
+reference's distributions and :func:`build_axes` / :func:`build_shapes`
+derive the sharding rules' inputs.
+
+Logical axis names (the reference's):
+  "layers"   -- stacked layer-period dimension
+  "embed"    -- d_model
+  "q_heads"  -- flattened n_heads * head_dim
+  "kv_heads" -- flattened n_kv_heads * head_dim
+  "mlp"      -- d_ff
+  "experts"  -- MoE expert dimension
+  "vocab"    -- (padded) vocabulary
+  "ssm_inner"-- mamba inner width
 """
 from __future__ import annotations
 
@@ -26,6 +38,7 @@ NEG_INF = -1e30
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
     init: str = "normal"          # normal | zeros | ones | ssm_a | ssm_dt
     scale: float | None = None    # stddev for "normal" (default fan-in)
 
@@ -53,11 +66,27 @@ class ParamDef:
         return (x * std).to(dtype)
 
 
+def _map_defs(fn, defs: dict) -> dict:
+    return {k: _map_defs(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in defs.items()}
+
+
+def build_axes(defs: dict) -> dict:
+    """The logical axes of every ParamDef, as a tree of tuples."""
+    return _map_defs(lambda d: d.axes, defs)
+
+
+def build_shapes(defs: dict, dtype: torch.dtype) -> dict:
+    """Every ParamDef as a tensor on the ``meta`` device (shape and dtype,
+    no storage): the reference's ``ShapeDtypeStruct`` tree."""
+    return _map_defs(lambda d: torch.empty(d.shape, dtype=dtype,
+                                           device="meta"), defs)
+
+
 def stack_defs(defs: dict, n: int) -> dict:
     """Prepend a period ("layers") dimension to every ParamDef."""
-    return {k: stack_defs(v, n) if isinstance(v, dict)
-            else ParamDef((n,) + v.shape, v.init, v.scale)
-            for k, v in defs.items()}
+    return _map_defs(lambda d: ParamDef((n,) + d.shape, ("layers",) + d.axes,
+                                        d.init, d.scale), defs)
 
 
 # ---------------------------------------------------------------------------
@@ -98,18 +127,18 @@ def attention_defs(cfg: ModelConfig) -> dict:
     d, hd = cfg.d_model, cfg.hd
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
     defs = {
-        "wq": ParamDef((d, nq)),
-        "wk": ParamDef((d, nkv)),
-        "wv": ParamDef((d, nkv)),
-        "wo": ParamDef((nq, d)),
+        "wq": ParamDef((d, nq), ("embed", "q_heads")),
+        "wk": ParamDef((d, nkv), ("embed", "kv_heads")),
+        "wv": ParamDef((d, nkv), ("embed", "kv_heads")),
+        "wo": ParamDef((nq, d), ("q_heads", "embed")),
     }
     if cfg.qkv_bias:
-        defs["bq"] = ParamDef((nq,), "zeros")
-        defs["bk"] = ParamDef((nkv,), "zeros")
-        defs["bv"] = ParamDef((nkv,), "zeros")
+        defs["bq"] = ParamDef((nq,), ("q_heads",), "zeros")
+        defs["bk"] = ParamDef((nkv,), ("kv_heads",), "zeros")
+        defs["bv"] = ParamDef((nkv,), ("kv_heads",), "zeros")
     if cfg.qk_norm:
-        defs["q_norm"] = ParamDef((hd,), "ones")
-        defs["k_norm"] = ParamDef((hd,), "ones")
+        defs["q_norm"] = ParamDef((hd,), (None,), "ones")
+        defs["k_norm"] = ParamDef((hd,), (None,), "ones")
     return defs
 
 
@@ -355,9 +384,9 @@ def mlp_defs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
     d = cfg.d_model
     f = d_ff or cfg.d_ff
     return {
-        "w_gate": ParamDef((d, f)),
-        "w_up": ParamDef((d, f)),
-        "w_down": ParamDef((f, d)),
+        "w_gate": ParamDef((d, f), ("embed", "mlp")),
+        "w_up": ParamDef((d, f), ("embed", "mlp")),
+        "w_down": ParamDef((f, d), ("mlp", "embed")),
     }
 
 
@@ -370,9 +399,11 @@ def mlp_block(p, x: torch.Tensor) -> torch.Tensor:
 # Embeddings / head
 # ---------------------------------------------------------------------------
 def embedding_defs(cfg: ModelConfig) -> dict:
-    defs = {"tok": ParamDef((cfg.vocab_padded, cfg.d_model), scale=1.0)}
+    defs = {"tok": ParamDef((cfg.vocab_padded, cfg.d_model),
+                            ("vocab", "embed"), scale=1.0)}
     if not cfg.tie_embeddings:
-        defs["head"] = ParamDef((cfg.d_model, cfg.vocab_padded))
+        defs["head"] = ParamDef((cfg.d_model, cfg.vocab_padded),
+                                ("embed", "vocab"))
     return defs
 
 
@@ -415,4 +446,4 @@ def token_nll_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def norm_defs(cfg: ModelConfig) -> dict:
-    return {"w": ParamDef((cfg.d_model,), "ones")}
+    return {"w": ParamDef((cfg.d_model,), (None,), "ones")}

@@ -20,6 +20,7 @@ from torch import nn
 
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import encdec as E
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
@@ -88,6 +89,15 @@ class Model(nn.Module):
 
     def param_tree(self) -> dict:
         return param_tree(self.params)
+
+    def axes(self) -> dict:
+        """Every parameter's logical axes (the sharding rules' input)."""
+        return L.build_axes(self.defs)
+
+    def shapes(self, dtype=None) -> dict:
+        """Every parameter as a ``meta`` tensor of its shape and dtype."""
+        return L.build_shapes(self.defs,
+                              torch_dtype(dtype or self.cfg.param_dtype))
 
     def param_count(self) -> int:
         return sum(p.numel() for p in self.params.parameters())

@@ -36,14 +36,14 @@ def moe_defs(cfg: ModelConfig) -> dict:
     e = cfg.n_experts
     de = cfg.d_expert or cfg.d_ff
     defs = {
-        "router": ParamDef((d, e)),
-        "w_gate": ParamDef((e, d, de)),
-        "w_up": ParamDef((e, d, de)),
-        "w_down": ParamDef((e, de, d)),
+        "router": ParamDef((d, e), ("embed", "experts")),
+        "w_gate": ParamDef((e, d, de), ("experts", "embed", "mlp")),
+        "w_up": ParamDef((e, d, de), ("experts", "embed", "mlp")),
+        "w_down": ParamDef((e, de, d), ("experts", "mlp", "embed")),
     }
     if cfg.n_shared_experts:
         defs["shared"] = mlp_defs(cfg, d_ff=cfg.n_shared_experts * de)
-        defs["shared_gate"] = ParamDef((d, 1))
+        defs["shared_gate"] = ParamDef((d, 1), ("embed", None))
     return defs
 
 

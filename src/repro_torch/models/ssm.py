@@ -34,15 +34,15 @@ def ssm_defs(cfg: ModelConfig) -> dict:
     g, n, h = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     conv_ch = di + 2 * g * n
     return {
-        "w_in": ParamDef((d, 2 * di + 2 * g * n + h)),
-        "conv_w": ParamDef((cfg.ssm_conv, conv_ch),
+        "w_in": ParamDef((d, 2 * di + 2 * g * n + h), ("embed", "ssm_inner")),
+        "conv_w": ParamDef((cfg.ssm_conv, conv_ch), (None, "ssm_inner"),
                            scale=cfg.ssm_conv ** -0.5),
-        "conv_b": ParamDef((conv_ch,), "zeros"),
-        "a_log": ParamDef((h,), "ssm_a"),
-        "dt_bias": ParamDef((h,), "ssm_dt"),
-        "d_skip": ParamDef((h,), "ones"),
-        "norm_w": ParamDef((di,), "ones"),
-        "w_out": ParamDef((di, d)),
+        "conv_b": ParamDef((conv_ch,), ("ssm_inner",), "zeros"),
+        "a_log": ParamDef((h,), (None,), "ssm_a"),
+        "dt_bias": ParamDef((h,), (None,), "ssm_dt"),
+        "d_skip": ParamDef((h,), (None,), "ones"),
+        "norm_w": ParamDef((di,), ("ssm_inner",), "ones"),
+        "w_out": ParamDef((di, d), ("ssm_inner", "embed")),
     }
 
 

@@ -5,7 +5,9 @@ logical names to mesh axes.  A spec here is the reference's
 ``PartitionSpec`` as a plain tuple, one entry per tensor dim: ``None``
 (replicated), a mesh axis name, or a tuple of names; :func:`placements`
 turns it into ``torch.distributed.tensor`` placements over a
-``DeviceMesh``.  Rule sets:
+``DeviceMesh``, and :class:`NamedSharding` pairs the two (the reference's
+``NamedSharding``: what a restore or the trainer places a tensor by).
+Rule sets:
 
   fsdp_tp  -- training: weights sharded d_model over the DP axes (FSDP) and
               heads/mlp/experts/vocab over "model" (TP/EP); batch over DP.
@@ -18,6 +20,7 @@ sizes.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Callable, Sequence
 
@@ -120,10 +123,36 @@ def placements(spec: tuple, mesh) -> tuple:
     return tuple(out)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class NamedSharding:
+    """A ``DeviceMesh`` and the placements of a tensor over it (one per
+    mesh dim), in the role of the reference's ``NamedSharding``."""
+    mesh: Any
+    placements: tuple
+
+    @classmethod
+    def from_spec(cls, mesh, spec: tuple) -> "NamedSharding":
+        return cls(mesh, placements(spec, mesh))
+
+    def place(self, tensor):
+        """``tensor`` (whole, the same on every rank) as a DTensor on the
+        mesh's device type: each rank keeps a copy of its own shard, with
+        no collective (``src_data_rank=None``), and holds nothing of the
+        whole."""
+        import torch
+        from torch.distributed.tensor import DTensor, distribute_tensor
+        d = distribute_tensor(tensor.to(self.mesh.device_type), self.mesh,
+                              self.placements, src_data_rank=None)
+        local = d.to_local().clone(memory_format=torch.contiguous_format)
+        return DTensor.from_local(local, self.mesh, self.placements,
+                                  shape=d.shape, stride=d.stride(),
+                                  run_check=False)
+
+
 def params_shardings(axes_tree, rules: dict, mesh, shapes_tree=None):
-    """Placements of every parameter over the ``DeviceMesh``."""
+    """:class:`NamedSharding` of every parameter over the ``DeviceMesh``."""
     specs = params_pspecs(axes_tree, rules, mesh, shapes_tree)
-    return _tree_map(lambda s: placements(s, mesh), specs,
+    return _tree_map(lambda s: NamedSharding.from_spec(mesh, s), specs,
                      is_leaf=lambda x: isinstance(x, tuple))
 
 

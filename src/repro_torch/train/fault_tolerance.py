@@ -9,10 +9,9 @@ Components:
   * run_with_recovery -- wraps a training loop: on failure, restore the
     latest committed checkpoint and resume; the deterministic data pipeline
     (data/pipeline.py) replays the exact batch order.
-  * elastic_restore -- restore a checkpoint onto another device.  The
-    reference re-places leaves on a different mesh; meshes come with the
-    port's sharding (ROADMAP Queue 1, sharding and meshes), so here the
-    target is one device.
+  * elastic_restore -- restore a checkpoint onto a different mesh (new
+    shardings) or onto one device: the leaves are logical, whole tensors,
+    so restoring elsewhere is re-placement.
 """
 from __future__ import annotations
 
@@ -76,20 +75,30 @@ class RecoveryStats:
     last_restored_step: int | None = None
 
 
+def _restore(ckpt: CheckpointManager, like_tree, placement):
+    """The newest checkpoint placed by ``placement``: a tree of
+    ``NamedSharding``s (a mesh), a device, or None (where ``like_tree``'s
+    leaves are)."""
+    if isinstance(placement, dict):
+        return ckpt.restore(like_tree, shardings=placement)
+    return ckpt.restore(like_tree, device=placement)
+
+
 def run_with_recovery(train_chunk: Callable[[Any, int, int], Any],
-                      state: Any, ckpt: CheckpointManager, device=None, *,
-                      total_steps: int, ckpt_every: int,
-                      max_restarts: int = 10):
+                      state: Any, ckpt: CheckpointManager,
+                      state_shardings=None, *, total_steps: int,
+                      ckpt_every: int, max_restarts: int = 10):
     """Run ``train_chunk(state, start_step, n_steps) -> state`` to
-    ``total_steps`` with checkpoint/restart on failure (restored leaves go
-    to ``device``, or where ``state``'s are).
+    ``total_steps`` with checkpoint/restart on failure (restored leaves
+    placed by ``state_shardings``: a tree of ``NamedSharding``s, a device,
+    or None for where ``state``'s are).
 
     ``train_chunk`` must raise on worker failure; recovery restores the
     newest committed checkpoint and replays from there."""
     stats = RecoveryStats()
     step = ckpt.latest_step() or 0
     if step:
-        state, step = ckpt.restore(state, device=device)
+        state, step = _restore(ckpt, state, state_shardings)
         stats.last_restored_step = step
     while step < total_steps:
         n = min(ckpt_every, total_steps - step)
@@ -105,12 +114,14 @@ def run_with_recovery(train_chunk: Callable[[Any, int, int], Any],
             if restored is None:
                 step = 0                      # restart from scratch
             else:
-                state, step = ckpt.restore(state, device=device)
+                state, step = _restore(ckpt, state, state_shardings)
                 stats.last_restored_step = step
     return state, stats
 
 
-def elastic_restore(ckpt: CheckpointManager, like_tree, device):
-    """Restore the latest checkpoint onto ``device``: the leaves are
-    logical, whole tensors, so restoring elsewhere is re-placement."""
-    return ckpt.restore(like_tree, device=device)
+def elastic_restore(ckpt: CheckpointManager, like_tree, new_shardings):
+    """Restore the latest checkpoint onto a different mesh (elastic
+    scale-up/down; ``new_shardings`` a tree of ``NamedSharding``s) or onto
+    one device (``new_shardings`` the device): logical shapes are
+    mesh-independent, so restoring is re-placement."""
+    return _restore(ckpt, like_tree, new_shardings)

@@ -21,7 +21,15 @@ the drops, and against the port's one-process forms:
     equals the no-context path bit for bit;
 (e) serving on that mesh (swap, COW) and the spill tier with a path at 2
     ranks, stepwise and fused: tokens per uid the reference engine's and
-    the same on every rank.
+    the same on every rank;
+(f) training (``Trainer`` on a mesh, FSDP over "data" and the state's
+    tensor-parallel shards over "model") on (4, 1) and (2, 2) meshes of
+    the 4 ranks: every step's loss the same on every rank, within rtol
+    1e-5 of the port's one-device trainer and 1e-3 of the reference's
+    (its own bound, tests/test_distributed.py:90), the gathered weights
+    within 1e-4 of one device's; the (4, 1) checkpoint restored by
+    ``elastic_restore`` onto the (2, 2) mesh and onto one device bit for
+    bit.  The training runs in the 4-rank spawn, after (e).
 """
 import dataclasses
 import functools
@@ -45,8 +53,16 @@ from repro.serve import EngineConfig as JaxEngineConfig  # noqa: E402
 from repro.serve import Request as JaxRequest  # noqa: E402
 from repro.serve import Scheduler as JaxScheduler  # noqa: E402
 from repro.serve import ServeEngine as JaxServeEngine  # noqa: E402
+from repro_torch.configs import get_config as port_config  # noqa: E402
+from repro_torch.configs import get_smoke_config as port_smoke  # noqa: E402
+from repro_torch.configs import list_archs  # noqa: E402
 from repro_torch.core import emem  # noqa: E402
+from repro_torch.models import layers as port_layers  # noqa: E402
+from repro_torch.models.model import Model, defs_for  # noqa: E402
 from repro_torch.parallel import sharding  # noqa: E402
+from repro_torch.train.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.train.fault_tolerance import elastic_restore  # noqa: E402
+from repro_torch.tree import flatten  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -83,11 +99,30 @@ def _tuples(tree):
         x, jax.sharding.PartitionSpec))
 
 
+def _port_axes_match_reference():
+    """The port's ``Model.axes()`` (smoke configs) and its defs' axes (full
+    configs) equal the reference's ``Model.axes()`` for all ten archs; the
+    port's ``Model.shapes()`` gives the reference's shapes."""
+    from repro.configs import get_config
+    for arch in list_archs():
+        model = Model(port_smoke(arch), device="cpu")
+        ref = JaxModel(get_smoke_config(arch))
+        assert model.axes() == ref.axes(), arch
+        assert jax.tree.map(lambda t: tuple(t.shape), model.shapes()) == \
+            jax.tree.map(lambda t: tuple(t.shape), ref.shapes()), arch
+        assert port_layers.build_axes(defs_for(port_config(arch))) == \
+            JaxModel(get_config(arch)).axes(), arch
+
+
 @pytest.mark.parametrize("rules", ["fsdp_tp", "tp_only", "dp_only"])
 def test_sharding_specs_match_reference(rules, arch_shapes):
     """(a) Every parameter's spec (with and without shapes), the batch spec
     and every cache leaf's spec, for three archs' smoke configs on four
-    mesh shapes, equal the reference's PartitionSpecs."""
+    mesh shapes, equal the reference's PartitionSpecs, the parameters'
+    specs taken from the port's own ``Model.axes()`` and ``Model.shapes()``,
+    which equal the reference's for all ten archs."""
+    if rules == "fsdp_tp":
+        _port_axes_match_reference()
     for shape, axes in MESHES:
         mesh = _Mesh(shape, axes)
         dp = tuple(a for a in axes if a != "model")
@@ -97,9 +132,10 @@ def test_sharding_specs_match_reference(rules, arch_shapes):
             jax_shd.batch_spec(want_rules))
         kw = dict(dp_axes=dp, tp_axis="model", kv_axes=dp)
         for arch, (param_axes, shapes, caches) in arch_shapes.items():
-            for tree in (None, shapes):
+            port = Model(port_smoke(arch), device="cpu")
+            for tree, ours in ((None, None), (shapes, port.shapes())):
                 assert sharding.params_pspecs(
-                    param_axes, want_rules, mesh, tree) == _tuples(
+                    port.axes(), want_rules, mesh, ours) == _tuples(
                     jax_shd.params_pspecs(param_axes, want_rules, mesh,
                                           tree)), (arch, shape)
             for cache in caches:
@@ -244,6 +280,31 @@ def _reference_results(ref):
     return np.stack(logits), tokens
 
 
+def _training_references():
+    """(f)'s one-device runs: the port's ``Trainer`` (per-step losses and
+    grad norms, the final weights) and the reference's ``Trainer`` on a
+    one-device mesh from the port's initial weights (per-step losses)."""
+    from repro.data import DataConfig as JaxDataConfig
+    from repro.data import SyntheticLM as JaxSyntheticLM
+    from repro.launch.mesh import make_host_mesh as jax_host_mesh
+    from repro.optim import AdamWConfig as JaxAdamW
+    from repro.train.trainer import Trainer as JaxTrainer
+    from repro_torch.models.config import ModelConfig
+    init = Model(ModelConfig(**R.TRAIN), device="cpu", seed=0).param_tree()
+    trainer, _, _, hist = R.train(None)
+    jcfg = JaxConfig(**R.TRAIN)
+    jt = JaxTrainer(JaxModel(jcfg), jax_host_mesh(),
+                    JaxAdamW(lr=R.TRAIN_LR))
+    params, opt = jt.init_state(seed=0)
+    params = jax.device_put(
+        jax.tree.map(lambda t: jnp.asarray(t.detach().numpy()), init),
+        jt.params_sh)
+    data = JaxSyntheticLM(jcfg, JaxDataConfig(R.TRAIN_B, R.TRAIN_S))
+    _, _, jhist = jt.run(params, opt, iter(data), R.TRAIN_STEPS)
+    return {"hist": hist, "model": R.whole(trainer.model.param_tree()),
+            "jax_loss": [h["loss"] for h in jhist]}
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory, reference):
     """The two spawns, run at once: 4 ranks for (b) and (c), then (d) and
@@ -266,6 +327,7 @@ def ranks(tmp_path_factory, reference):
                        ref["toks"], cases),
                R.start(R.two_ranks, 2, two, two, ref["params"], spill))
     logits, tokens = _reference_results(ref)
+    training = _training_references()
     expected = {n: _expect_memory(n) for n in (4, 2)}
     single = {layout: R.decode_logits(R._decoder(layout, ref["params"]),
                                       ref["toks"])
@@ -278,7 +340,8 @@ def ranks(tmp_path_factory, reference):
     return {"four": R.load(four, "four", 4), "two": R.load(two, "two", 2),
             "expected": expected, "logits": logits, "tokens": tokens,
             "single": single, "cases": cases, "spill": spill,
-            "spill_path": spill_path}
+            "spill_path": spill_path, "training": training,
+            "ckpt_dir": str(four / "ckpt")}
 
 
 def _check_serving(outs, want, stats_check):
@@ -341,6 +404,79 @@ def test_serving_on_ranks(ranks):
     path = ranks["spill_path"]
     assert {o["serve"][name][2] for o in ranks["two"]
             for name in ranks["spill"]} == {f"{path}/rank0", f"{path}/rank1"}
+
+
+def _nest(flat: dict) -> dict:
+    """{"a/b": x} -> {"a": {"b": x}}."""
+    out: dict = {}
+    for path, leaf in flat.items():
+        *keys, last = path.split("/")
+        node = out
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return out
+
+
+@pytest.mark.parametrize("shape", R.TRAIN_MESHES)
+def test_sharded_training_matches_single_device(ranks, shape):
+    """(f) Three steps of the reference test's model on a ("data",
+    "model") mesh of ``shape`` (with (4, 1) also a (2, 2, 1) ("pod",
+    "data", "model") mesh, data-parallel over "pod" and "data"): each rank
+    holds its shards (wq's [layers, embed, q_heads] split over the data
+    axes and model), every step's loss and grad norm the same on every
+    rank and within rtol 1e-5 of the port's one-device trainer, the loss
+    within 1e-3 of the reference's, the gathered weights (the model's
+    tensors) the same on every rank, equal to the gathered state and
+    within 1e-4 of one device's."""
+    one = ranks["training"]
+    runs = {"": [o["train"][shape] for o in ranks["four"]]}
+    if shape == (4, 1):
+        runs["pod"] = [o["train"]["pod"] for o in ranks["four"]]
+    for name, group in runs.items():
+        hist = group[0]["hist"]
+        assert group[0]["local"]["b0/attn/wq"] == (2, 64 // shape[0],
+                                                   64 // shape[1]), name
+        for run in group:
+            assert run["hist"] == hist, name
+            for k, v in group[0]["model"].items():
+                np.testing.assert_array_equal(run["model"][k], v, err_msg=k)
+                if "state" in run:
+                    np.testing.assert_array_equal(
+                        run["state"][f"params/{k}"], v, err_msg=k)
+        np.testing.assert_allclose(np.array(hist), np.array(one["hist"]),
+                                   rtol=1e-5, atol=0, err_msg=name)
+        err = np.abs(np.array([l for l, _ in hist]) - one["jax_loss"]).max()
+        assert err < 1e-3, (name, err)
+        for k, v in one["model"].items():
+            np.testing.assert_allclose(group[0]["model"][k], v, rtol=0,
+                                       atol=1e-4, err_msg=f"{name} {k}")
+
+
+def test_elastic_restore_across_meshes(ranks):
+    """(f) The (4, 1) mesh's state (params, moments, step), written by rank
+    0 through the async saver, restored by ``elastic_restore`` onto the
+    (2, 2) mesh's shardings (DTensors placed as the (2, 2) trainer places
+    them) and onto one device, bit for bit."""
+    saved = ranks["four"][0]["train"][(4, 1)]["state"]
+    for out in ranks["four"]:
+        train = out["train"]
+        for k, v in saved.items():
+            np.testing.assert_array_equal(train[(4, 1)]["state"][k], v)
+        got = train["restored"]
+        assert got["step"] == R.TRAIN_STEPS
+        assert got["dtensor"] and got["placements_equal"]
+        assert got["state"].keys() == saved.keys()
+        for k, v in saved.items():
+            np.testing.assert_array_equal(got["state"][k], v, err_msg=k)
+    ckpt = CheckpointManager(ranks["ckpt_dir"])
+    assert ckpt.all_steps() == [R.TRAIN_STEPS]
+    like = _nest({k: torch.zeros(()) for k in saved})
+    one, step = elastic_restore(ckpt, like, "cpu")
+    assert step == R.TRAIN_STEPS
+    for k, v in flatten(one).items():
+        assert v.device.type == "cpu"
+        np.testing.assert_array_equal(v.numpy(), saved[k], err_msg=k)
 
 
 def test_world_one_context_equals_single_device(tmp_path, reference,
@@ -416,12 +552,27 @@ def test_world_one_context_equals_single_device(tmp_path, reference,
         axes, shapes, _ = arch_shapes["qwen3-0.6b"]
         placed = sharding.params_shardings(
             axes, sharding.rule_set("fsdp_tp"), mesh, shapes)
-        assert placed["embed"]["tok"] == (Shard(1), Shard(0))
-        from torch.distributed.tensor import distribute_tensor
+        assert placed["embed"]["tok"].placements == (Shard(1), Shard(0))
         shape = tuple(shapes["embed"]["tok"].shape)
-        emb = distribute_tensor(torch.zeros(shape), mesh,
-                                placed["embed"]["tok"])
+        emb = placed["embed"]["tok"].place(torch.zeros(shape))
         assert tuple(emb.shape) == shape
+        assert emb.placements == (Shard(1), Shard(0))
+        # (f) at world 1: a (1, 1) mesh trains bit for bit as one device,
+        # and its async checkpoint restores onto one device bit for bit
+        mesh_ctx.clear_context()
+        trainer, params, opt, hist = R.train(mesh)
+        alone, _, _, alone_hist = R.train(None)
+        assert hist == alone_hist
+        mine = R.whole(trainer.model.param_tree())
+        for k, v in R.whole(alone.model.param_tree()).items():
+            np.testing.assert_array_equal(mine[k], v, err_msg=k)
+        ckpt = CheckpointManager(str(tmp_path / "ckpt"))
+        ckpt.save(R.TRAIN_STEPS, {"params": params, "opt": opt})
+        ckpt.wait()
+        state = R.whole({"params": params, "opt": opt})
+        one, _ = elastic_restore(ckpt, _nest({k: 0 for k in state}), "cpu")
+        for k, v in flatten(one).items():
+            np.testing.assert_array_equal(v.numpy(), state[k], err_msg=k)
         with pytest.raises(ValueError, match="mesh order"):
             sharding.placements((("model", "data"),), mesh)
     finally:

@@ -1,7 +1,8 @@
-"""Port hygiene: the PyTorch package, chip_smoke.py, the port's benchmark,
-its serve and train examples and the rank bodies the multi-rank tests
-spawn import neither JAX nor the reference package (nor the reference's
-benchmark modules), the entry points refuse
+"""Port hygiene: the PyTorch package, chip_smoke.py, the port's benchmarks
+(the serving-memory bench and the paper's figures), its examples and the
+rank bodies the multi-rank tests spawn import neither JAX nor the
+reference package (nor the reference's benchmark modules), the entry
+points refuse
 to fall back to the CPU silently when no CUDA device is present, the
 kernel packages export the reference's public names, and every kernel
 wrapper refuses a grad-requiring input before its launch."""
@@ -17,8 +18,11 @@ torch = pytest.importorskip("torch")
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "benchmarks" / "vm_bench_torch.py",
+    ROOT / "benchmarks" / "figs_torch.py",
     ROOT / "examples" / "serve_lm_torch.py",
     ROOT / "examples" / "train_lm_torch.py",
+    ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "emulated_memory_demo_torch.py",
     ROOT / "tests" / "torch_mesh_ranks.py"]
 #: the reference's benchmark modules, which import JAX
 REFERENCE_BENCHMARKS = ("benchmarks.vm_bench", "benchmarks.kernel_bench")
@@ -68,10 +72,20 @@ def test_kernel_packages_export_the_reference_names():
         assert _public(port) == _public(reference), package
 
 
+def _example(name):
+    """An example script of ``examples/`` as a module (not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
-    """With no GPU, Model, the weight bridge, the serve CLI, the emulated
-    memory and its VM raise unless the caller asks for the CPU; asking for
-    it works."""
+    """With no GPU, Model, the weight bridge, the serve and train CLIs, the
+    quickstart and emulated-memory examples, the emulated memory and its
+    VM raise unless the caller asks for the CPU; asking for it works."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core import emem
     from repro_torch.emem_vm import EMemVM, VMConfig
@@ -89,6 +103,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--smoke", "--steps", "1"])
+    for name in ("quickstart_torch", "emulated_memory_demo_torch"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            _example(name).main([])
     assert Model(cfg, device="cpu").device.type == "cpu"
     spec = emem.EMemSpec(n_slots=256, width=4, page_slots=16)
     with pytest.raises(RuntimeError, match="CUDA"):

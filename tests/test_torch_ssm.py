@@ -172,7 +172,7 @@ def test_init_matches_reference_distributions():
     for init, lo, hi, to_u in (("ssm_a", 1.0, 16.0, np.exp),
                                ("ssm_dt", math.log(1e-3), math.log(1e-1),
                                 lambda v: v)):
-        ours = to_u(ParamDef((n,), init).initialize(
+        ours = to_u(ParamDef((n,), (None,), init).initialize(
             gen, torch.float32, "cpu").numpy())
         ref = to_u(np.asarray(JaxParamDef((n,), (None,), init).initialize(
             jax.random.key(0), jnp.float32)))

@@ -198,7 +198,7 @@ def test_microbatching_matches_full_batch():
     results = []
     for mb in (1, 4):
         model = Model(cfg, device="cpu")
-        trainer = Trainer(model, AdamWConfig(lr=1e-3),
+        trainer = Trainer(model, None, AdamWConfig(lr=1e-3),
                           TrainConfig(microbatches=mb))
         params, opt = trainer.init_state(seed=3)
         params, opt, hist = trainer.run(params, opt, iter(data), 3)

@@ -31,6 +31,16 @@ DECODER = dict(name="t", family="dense", n_layers=2, d_model=64, n_heads=8,
                compute_dtype="float32")
 #: scattered frames of tests/test_distributed.py:322, and its batch
 FRAMES, B, S = [5, 2, 11, 7, 3, 13, 1, 9], 2, 8
+#: the reference's sharded-training test (tests/test_distributed.py:90):
+#: its model, DataConfig(8, 16), AdamWConfig(lr=1e-3), 3 steps from seed 0
+TRAIN = dict(name="t", family="dense", n_layers=2, d_model=64, n_heads=4,
+             n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=64,
+             param_dtype="float32", compute_dtype="float32")
+TRAIN_B, TRAIN_S, TRAIN_LR, TRAIN_STEPS = 8, 16, 1e-3, 3
+#: the meshes the 4 ranks train on, ("data", "model")
+TRAIN_MESHES = ((4, 1), (2, 2))
+#: and a mesh with two data-parallel dims, ("pod", "data", "model")
+TRAIN_POD = (2, 2, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -348,9 +358,78 @@ def serve(model, case: ServeCase):
     return {r.uid: tuple(r.output) for r in done}, eng.shutdown(), spill_dir
 
 
+def train(mesh, device="cpu", dp_axes=("data",)):
+    """TRAIN's 3 steps on ``mesh`` (None: one device) with ``fsdp_tp`` over
+    ``dp_axes``: (trainer, params, opt, per-step losses and grad norms)."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    cfg = ModelConfig(**TRAIN)
+    trainer = Trainer(Model(cfg, device=device), mesh,
+                      AdamWConfig(lr=TRAIN_LR), TrainConfig(dp_axes=dp_axes))
+    params, opt = trainer.init_state(seed=0)
+    data = SyntheticLM(cfg, DataConfig(TRAIN_B, TRAIN_S))
+    params, opt, hist = trainer.run(params, opt, iter(data), TRAIN_STEPS)
+    return trainer, params, opt, [(h["loss"], h["grad_norm"]) for h in hist]
+
+
+def whole(tree) -> dict:
+    """{path: numpy} of a state tree, DTensor leaves gathered (every rank
+    together)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.tree import flatten
+    return {k: (v.full_tensor() if isinstance(v, DTensor) else v)
+            .detach().numpy().copy() for k, v in flatten(tree).items()}
+
+
+def _train_on_meshes(workdir) -> dict:
+    """Training on each of TRAIN_MESHES and on TRAIN_POD (dp over "pod"
+    and "data"); the (4, 1) state saved to ``workdir/ckpt`` by the async
+    saver and restored by elastic_restore onto the (2, 2) mesh's
+    shardings."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.fault_tolerance import elastic_restore
+    from repro_torch.tree import flatten
+    out, trainers = {}, {}
+    for shape in TRAIN_MESHES:
+        mesh = make_mesh(shape, ("data", "model"), "cpu")
+        trainer, params, opt, hist = train(mesh)
+        trainers[shape] = trainer
+        out[shape] = {"hist": hist,
+                      "model": whole(trainer.model.param_tree()),
+                      "state": whole({"params": params, "opt": opt}),
+                      "local": {k: tuple(v.to_local().shape)
+                                for k, v in flatten(params).items()}}
+        if shape == (4, 1):
+            ckpt = CheckpointManager(os.path.join(str(workdir), "ckpt"))
+            ckpt.save(TRAIN_STEPS, {"params": params, "opt": opt})
+            ckpt.wait()
+    mesh = make_mesh(TRAIN_POD, ("pod", "data", "model"), "cpu")
+    trainer, params, _, hist = train(mesh, dp_axes=("pod", "data"))
+    out["pod"] = {"hist": hist, "model": whole(trainer.model.param_tree()),
+                  "local": {k: tuple(v.to_local().shape)
+                            for k, v in flatten(params).items()}}
+    tr = trainers[(2, 2)]
+    like = {"params": tr.params_sh, "opt": tr.opt_sh}
+    restored, step = elastic_restore(
+        CheckpointManager(os.path.join(str(workdir), "ckpt")), like, like)
+    leaves = flatten(restored)
+    out["restored"] = {
+        "step": step, "state": whole(restored),
+        "dtensor": all(isinstance(v, DTensor) for v in leaves.values()),
+        "placements_equal": all(
+            v.placements == flatten(like)[k].placements
+            for k, v in leaves.items())}
+    return out
+
+
 def four_ranks(rank, workdir, params, toks, cases):
     """(b) and (c) on 4 ranks, then (d) decode and (e) serving on a
-    (2 kv x 2 tp) mesh."""
+    (2 kv x 2 tp) mesh, then training on TRAIN_MESHES."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.parallel import mesh_ctx
     out = {"memory": _memory(4)}
@@ -365,4 +444,6 @@ def four_ranks(rank, workdir, params, toks, cases):
     except ValueError:
         out["odd_pool_refused"] = True
     out["serve"] = {name: serve(model, case) for name, case in cases.items()}
+    mesh_ctx.clear_context()
+    out["train"] = _train_on_meshes(workdir)
     save(workdir, "four", rank, out)
