@@ -22,7 +22,8 @@ the encoder-decoder seamless-m4t-medium (K3 in its encoder and
 cross-attention, K1 and K4 in its decoder's self-attention); then
 training on the plain paths (qwen3-0.6b and seamless-m4t-medium), on one
 card and on a world-1 NCCL mesh; then the paper's analytic models and the
-examples built on them.  Each phase prints one JSON line with its seconds
+examples built on them; then the dry-run and roofline tooling, held to
+measured steps on the card.  Each phase prints one JSON line with its seconds
 (phase archs one per arch):
 
 1. build      -- nvcc builds the five kernel libraries from the checkout's
@@ -228,7 +229,20 @@ examples built on them.  Each phase prints one JSON line with its seconds
                  paper's headline claims, Fig. 10's slowdowns at 4096
                  tiles printed on a line of their own, and the examples
                  emulated_memory_demo_torch and quickstart_torch on the
-                 card (quickstart trains on a world-1 NCCL mesh).
+                 card (quickstart trains on a world-1 NCCL mesh);
+22. dryrun    -- the dry-run and roofline tooling (no JAX, no card for
+                 the counts): ``launch/dryrun.run_cell`` for qwen3-0.6b,
+                 mamba2-780m and mixtral-8x7b over the four shapes on the
+                 16 x 16 mesh and qwen3-0.6b train_4k on the 2 x 16 x 16
+                 one, each one rank's step counted on meta tensors over a
+                 fake group of 256 or 512 ranks, all ok or skipped; the
+                 yardstick: qwen3-0.6b's batch-layout decode step (B 8,
+                 cache 512) and prefill (8 x 511) counted on a (1, 1)
+                 fake mesh and timed on the card (bf16, the kernels'
+                 paths), their roofline bounds, device ms and roofline
+                 shares, the prefill's counted FLOPs within 5% of the
+                 analytic count; benchmarks/run_torch.py's kernel and
+                 emem rows (K3-K6 at the reference's bench shapes).
 
 Then it prints the kernels' JSON line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -4523,11 +4537,194 @@ def phase_paper(dev):
     return res
 
 
+# -- phase 22 ------------------------------------------------------------------
+
+#: phase dryrun's cells: every shape of these archs on the single-pod
+#: (16, 16) mesh, and one multi-pod (2, 16, 16) cell
+DRYRUN_ARCHS = ("qwen3-0.6b", "mamba2-780m", "mixtral-8x7b")
+DRYRUN_MULTI = (("qwen3-0.6b", "train_4k"),)
+#: the yardstick's steps, qwen3-0.6b at full width and depth in bf16: the
+#: batch-layout decode step of 8 rows over a 512-position cache, and the
+#: prefill of 8 prompts of 511 tokens (phases profile and prefill)
+YARD_DECODE = (PREFILL_B, PREFILL_MAX_LEN)
+YARD_PREFILL = (PREFILL_B, PREFILL_S)
+#: the prefill's counted FLOPs against the analytic count
+YARD_FLOPS_RTOL = 0.05
+
+
+def analytic_prefill_flops(cfg, b: int, s: int) -> float:
+    """A decoder prefill's FLOPs by hand (PERF.md §2): the projections and
+    MLP, 2 x non-embedding params x tokens; causal attention with the
+    S-token block counted whole, 4 B H S^2 hd a layer (QK^T and PV), as
+    one chunk pair of ``chunked_attention_unrolled`` and K3's plain
+    version ``ref.mha`` compute it; the last position's logits, 2 B d V.
+    For qwen3-0.6b at 8 x 511: 3.60e12 + 0.479e12 + 2.5e9."""
+    emb = cfg.vocab_padded * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    return (2.0 * (cfg.param_count() - emb) * b * s
+            + 4.0 * b * cfg.n_heads * s * s * cfg.hd * cfg.n_layers
+            + 2.0 * b * cfg.d_model * cfg.vocab_padded)
+
+
+def step_bytes(model, cache, logits) -> float:
+    """The bytes a step must move, each once: every weight read (the tied
+    embedding table whole, as the logits read it), the KV cache (read by a
+    decode step, written by a prefill) and the logits written."""
+    from repro_torch.tree import leaves
+    assert model.cfg.tie_embeddings, "an untied input table is read by row"
+    return float(sum(t.nbytes for t in leaves({"p": model.param_tree(),
+                                               "c": cache}))
+                 + logits.nbytes)
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_dryrun(dev):
+    """The dry-run and roofline tooling on the card's machine (no JAX): (a)
+    ``run_cell`` for DRYRUN_ARCHS over the four shapes on the single-pod
+    mesh and DRYRUN_MULTI's cell on the multi-pod one, each one rank's
+    step counted on meta tensors over a fake group of 256 or 512 ranks,
+    one line per cell (status, dominant term, fits_80gb,
+    useful_flops_ratio), every cell ok or skipped; (b) the yardstick: the
+    count of YARD_DECODE's and YARD_PREFILL's steps on a (1, 1) fake mesh
+    beside their device time on the card (the kernels' paths, bf16): each
+    step's roofline bound (counted FLOPs; the memory term from the bytes
+    the step must move, :func:`step_bytes`, and beside it from the
+    reference's ``analytic_hbm_bytes``, which counts the weights twice, and
+    from the counted unfused bytes), its device ms and their ratio, the
+    roofline share; the prefill's
+    counted FLOPs within YARD_FLOPS_RTOL of :func:`analytic_prefill_flops`;
+    (c) ``benchmarks/run_torch.py``'s kernel and emem rows.  No default
+    group is left running."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import hlo_analysis as H
+    from repro_torch.models.model import Model
+    sys.path.insert(0, ROOT)
+    from benchmarks import run_torch
+    if dist.is_initialized():
+        raise AssertionError("a process group is running before the dry-run")
+    res, failed = {"cells": {}}, []
+    t = time.monotonic()
+    cells = [(a, s, "single") for a in DRYRUN_ARCHS for s in SHAPES]
+    cells += [(a, s, "multi") for a, s in DRYRUN_MULTI]
+    for arch, shape, mesh in cells:
+        rec = D.run_cell(arch, shape, mesh)
+        print(f"dryrun: {D.summary(rec)} ({rec['seconds']:.1f}s)", flush=True)
+        keep = {k: rec.get(k) for k in ("status", "seconds", "fits_80gb",
+                                        "useful_flops_ratio",
+                                        "replicated_over_tp", "error")}
+        if rec["status"] == "ok":
+            keep.update(dominant=rec["roofline"]["dominant"],
+                        bound_s=max(rec["roofline"][k] for k in (
+                            "compute_s", "memory_s", "collective_s")),
+                        peak_gb=rec["memory"]["peak_bytes"] / 1e9,
+                        peak_how=rec["memory"]["how"])
+        res["cells"][f"{arch}/{shape}/{mesh}"] = keep
+        if rec["status"] not in ("ok", "skipped"):
+            failed.append(f"{arch} {shape} {mesh}: {rec.get('error')}")
+    res["cells_s"] = time.monotonic() - t
+    if dist.is_initialized():
+        failed.append("run_cell left a process group running")
+
+    # (b) the yardstick: the counted step beside its device time
+    t = time.monotonic()
+    cfg = full_cfg("bfloat16", kv_layout="batch", attn_impl="pallas")
+    counts = {"decode": D.count_on_one_rank(cfg, "decode", *YARD_DECODE),
+              "prefill": D.count_on_one_rank(cfg, "prefill", *YARD_PREFILL)}
+    res["count_s"] = time.monotonic() - t
+    model = Model(cfg, device=dev, seed=0)
+    rng = np.random.default_rng(7)
+    b, s = YARD_PREFILL
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (b, s)), device=dev)
+
+    def prefill():
+        return model.prefill({"tokens": toks}, YARD_DECODE[1])
+
+    logits, cache = prefill()
+    lengths = torch.full((b,), YARD_DECODE[1], dtype=torch.int32, device=dev)
+    tok = toks[:, -1:].to(torch.int32)
+    steps = {"decode": lambda: model.decode_step(tok, cache, lengths),
+             "prefill": prefill}
+    moved = step_bytes(model, cache, logits)     # the same for both steps
+    res["card"] = card()
+    for kind, fn in steps.items():
+        c = counts[kind]
+        timing = timed(fn, iters=10)
+        dev_ms = timing["device_ms"]
+        compute_ms = c["roofline"]["compute_s"] * 1e3
+        memory_ms = moved / H.HBM_BW * 1e3
+        bound = max(compute_ms, memory_ms)
+        bound_analytic = max(compute_ms,
+                             c["roofline_analytic"]["memory_s"] * 1e3)
+        bound_counted = max(compute_ms, c["roofline"]["memory_s"] * 1e3)
+        res[kind] = {
+            "flops": c["roofline"]["flops"], "bytes_moved": moved,
+            "hbm_bytes_counted": c["roofline"]["hbm_bytes"],
+            "hbm_bytes_analytic": c["roofline_analytic"]["hbm_bytes"],
+            "compute_ms": compute_ms, "memory_ms": memory_ms,
+            "memory_ms_analytic": c["roofline_analytic"]["memory_s"] * 1e3,
+            "memory_ms_counted": c["roofline"]["memory_s"] * 1e3,
+            "bound_ms": bound, "bound_analytic_ms": bound_analytic,
+            "bound_counted_ms": bound_counted,
+            "peak_gb_counted": c["memory"]["peak_bytes"] / 1e9,
+            "device_ms": dev_ms, "clock": timing["clock"],
+            "loop_ms": timing["loop_ms"],
+            "roofline_share": bound / dev_ms if dev_ms else None,
+            "analytic_share": bound_analytic / dev_ms if dev_ms else None,
+            "counted_share": bound_counted / dev_ms if dev_ms else None}
+        r = res[kind]
+        print(f"dryrun: {kind} ({res['card']}): bound {bound:.4g} ms "
+              f"({moved / 1e9:.4g} GB moved, {c['roofline']['flops']:.4g} "
+              f"FLOPs), device {dev_ms:.4g} ms ({timing['clock']}), "
+              f"roofline share {r['roofline_share']:.3g}; beside it "
+              f"analytic_hbm_bytes {bound_analytic:.4g} ms (share "
+              f"{r['analytic_share']:.3g}), counted unfused bytes "
+              f"{bound_counted:.4g} ms", flush=True)
+    want = analytic_prefill_flops(cfg, *YARD_PREFILL)
+    got = counts["prefill"]["roofline"]["flops"]
+    res["prefill"].update(analytic_flops=want, flops_rel=got / want - 1.0)
+    print(f"dryrun: prefill counted {got:.6g} FLOPs, analytic {want:.6g} "
+          f"({got / want - 1.0:+.2e})", flush=True)
+    if not abs(got / want - 1.0) <= YARD_FLOPS_RTOL:
+        failed.append(f"prefill FLOPs {got} against {want}")
+    del model, cache, logits, steps, prefill
+    torch.cuda.empty_cache()
+    res["yardstick_s"] = time.monotonic() - t
+
+    # (c) the kernel and emem benches
+    t = time.monotonic()
+    rows = [r for name, fn in run_torch.modules(dev)
+            if name in ("kernel_bench", "emem_bench") for r in fn()]
+    for r in rows:
+        print(f"dryrun: {r['name']},{r['us_per_call']},{r['derived']}",
+              flush=True)
+    timed_rows = [r for r in rows if r["us_per_call"] > 0]
+    if len(timed_rows) != 8 \
+            or not all(np.isfinite(r["us_per_call"]) for r in timed_rows):
+        failed.append(f"bench rows {rows}")
+    res["bench_rows"] = {r["name"]: r["us_per_call"] for r in rows}
+    res["bench_s"] = time.monotonic() - t
+    if dist.is_initialized():
+        failed.append("a process group is left running")
+    if failed:
+        emit({"phase": "dryrun", "failed": failed, **res})
+        raise AssertionError(f"phase dryrun failed: {failed}")
+    return res
+
+
 # -- main -----------------------------------------------------------------------
 
 PHASES = ("build,kernels,teacher,profile,serve,tokens,flash,prefill,batch,"
           "ssd,ssm_prefill,ssm_serve,gather,emem,vm,mesh,vm_bench,archs,"
-          "encdec,train,mesh_train,paper")
+          "encdec,train,mesh_train,paper,dryrun")
 #: the kernels' libraries, sources and the TPU kernels they replace
 KERNELS = (
     ("paged_kv_write", "k1", "src/repro_torch/kernels/paged_decode/csrc/"
@@ -4723,6 +4920,8 @@ def main(argv=None) -> int:
         run("mesh_train", phase_mesh_train, dev)
     if "paper" in phases:
         run("paper", phase_paper, dev)
+    if "dryrun" in phases:
+        run("dryrun", phase_dryrun, dev)
 
     def ms(key):
         # the device time of timed(); the event-timed loop where neither
@@ -4739,10 +4938,7 @@ def main(argv=None) -> int:
          "bound_by": tm.get(f"{key}_bound_by", "bytes"),
          "library_ms": ms(f"{key}_library")}
         for name, key, src, replaces in KERNELS]})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

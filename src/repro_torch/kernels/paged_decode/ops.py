@@ -32,13 +32,19 @@ def resolve_impl(paged_kernel: str, hl: int, group: int,
                  device: torch.device) -> str:
     """Map the ModelConfig ``paged_kernel`` flag + the tensors' device to an
     impl: ``auto`` is ``fused`` on CUDA and ``composed`` on the CPU;
-    ``fused`` on the CPU raises; ``composed`` is honoured everywhere."""
+    ``fused`` on the CPU raises; ``composed`` is honoured everywhere.  The
+    kernels walk whole KV-head groups, so ``hl`` local query heads that
+    split a group raise (a misconfigured tensor-parallel split), on the CPU
+    too, where ``auto`` stands for the card's path; only ``composed``, and
+    ``auto`` on ``meta`` tensors (the dry-run counts the plain path), take
+    such a shard, as the reference's composed path does."""
+    device = torch.device(device)
+    if paged_kernel == "composed" or (paged_kernel == "auto"
+                                      and device.type == "meta"):
+        return "composed"
     if hl % group:
         raise ValueError(f"{hl} local query heads do not split into whole "
                          f"KV-head groups of {group}")
-    device = torch.device(device)
-    if paged_kernel == "composed":
-        return "composed"
     if paged_kernel == "fused":
         if device.type != "cuda":
             raise RuntimeError("paged_kernel='fused' needs CUDA tensors: the "

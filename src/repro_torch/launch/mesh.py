@@ -8,8 +8,9 @@ to the other), and :func:`make_mesh` / :func:`make_host_mesh` lay a
 ``torch.distributed`` ``DeviceMesh`` over the group's ranks, row-major as
 ``jax.make_mesh`` lays devices.  Nothing here runs at import.
 
-``make_production_mesh`` (the 256/512-chip dry-run meshes) comes with the
-dry-run tooling.
+:func:`make_production_mesh` lays the dry-run's 256- and 512-rank meshes
+over a fake group (:func:`start_fake_group`), in which one process plays
+one rank and every collective returns at once.
 """
 from __future__ import annotations
 
@@ -67,6 +68,44 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device=None):
                          f"group has {dist.get_world_size()}")
     return init_device_mesh(_device_type(device), shape,
                             mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """16x16 = 256 ranks per pod; 2 pods = 512 with a leading "pod" axis,
+    over a default group of as many ranks: the dry-run's fake group
+    (:func:`start_fake_group`).  The mesh's device type is ``meta``, the
+    dry-run's device: ``distribute_tensor`` moves a tensor to the mesh's
+    device type, and a meta tensor cannot be copied to the CPU, so a
+    ``cpu`` mesh would need real storage for every weight."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device="meta")
+
+
+def start_fake_group(world_size: int, rank: int = 0) -> None:
+    """Start a default group of ``world_size`` ranks in which this process
+    is ``rank`` and no other rank runs: torch's ``fake`` backend
+    (``torch.testing._internal.distributed.fake_pg``), whose collectives
+    return at once and move nothing.  Raises if a default group is
+    running: the dry-run never takes over another group."""
+    if dist.is_initialized():
+        raise RuntimeError("a default process group is already running")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+
+
+def end_fake_group() -> None:
+    """End the group :func:`start_fake_group` started, with the mesh
+    context and the groups cached over it; a no-op without one."""
+    from repro_torch.parallel import mesh_ctx
+    mesh_ctx.clear_context()
+    mesh_ctx.forget_groups()
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(f"the default group is {dist.get_backend()}, "
+                               "not the dry-run's fake group")
+        dist.destroy_process_group()
 
 
 def dp_axes(multi_pod: bool) -> tuple[str, ...]:

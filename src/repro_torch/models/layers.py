@@ -45,7 +45,11 @@ class ParamDef:
     def initialize(self, gen: torch.Generator, dtype: torch.dtype,
                    device) -> torch.Tensor:
         """Draw the tensor from ``gen`` (which must live on ``device``) with
-        the reference's distribution, in f32, then cast to ``dtype``."""
+        the reference's distribution, in f32, then cast to ``dtype``.  On
+        the ``meta`` device nothing is drawn (``gen`` may be None): the
+        tensor has the shape and dtype alone."""
+        if torch.device(device).type == "meta":
+            return torch.empty(self.shape, dtype=dtype, device="meta")
         if self.init == "zeros":
             return torch.zeros(self.shape, dtype=dtype, device=device)
         if self.init == "ones":
@@ -203,7 +207,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       chunk_k: int, kv_valid_len=None) -> torch.Tensor:
     """Flash-equivalent attention in plain torch: an online softmax over KV
     chunks inside a loop over Q chunks (the reference's two ``lax.scan``s),
-    never materialising the [Sq, Skv] logits.
+    never materialising the [Sq, Skv] logits.  Chunk pairs that the causal
+    mask or the window masks whole are skipped, as K3 skips its blocks:
+    their probabilities would be 0 at a rescale factor of 1, so the values
+    do not change and the work (what the dry-run counts) is the kernel's.
 
     q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D]; kv_valid_len: [B] optional
     valid KV prefix lengths.  Queries sit at the tail of the KV sequence."""
@@ -226,7 +233,12 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        device=dev)
         l = torch.zeros((b, hkv, g, cq), dtype=torch.float32, device=dev)
         acc = torch.zeros((b, hkv, g, cq, d), dtype=torch.float32, device=dev)
+        q_lo, q_hi = q_base + qi * cq, q_base + (qi + 1) * cq - 1
         for kj in range(nk):
+            if causal and kj * ck > q_hi:
+                continue                      # fully above the diagonal
+            if window is not None and (kj + 1) * ck - 1 < q_lo - window + 1:
+                continue                      # fully left of every window
             kc, vc = kf[:, :, kj], vf[:, :, kj]        # [B, Hkv, ck, D]
             s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kc)
             k_pos = kj * ck + torch.arange(ck, device=dev)
@@ -252,6 +264,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
+#: The reference's name for the form that skips fully masked chunk pairs
+#: (its dry-run's cost probes); :func:`chunked_attention` skips them always.
+chunked_attention_unrolled = chunked_attention
+
+
 def full_attention(cfg: ModelConfig, q, k, v, *, causal: bool,
                    window: int | None, kv_valid_len=None) -> torch.Tensor:
     """Dispatch on ``cfg.attn_impl``: ``"pallas"`` is K3 through
@@ -260,8 +277,7 @@ def full_attention(cfg: ModelConfig, q, k, v, *, causal: bool,
     the plain oracle :func:`~repro_torch.kernels.flash_attention.ref.mha`;
     ``"chunked"`` and ``"chunked_unrolled"`` :func:`chunked_attention`.  The
     reference's unrolled form exists for XLA cost probes and skips fully
-    masked chunk pairs, which leaves the online softmax unchanged (their
-    probabilities are 0 and their rescale factor 1): the same arithmetic."""
+    masked chunk pairs, which :func:`chunked_attention` always does."""
     impl = cfg.attn_impl
     if impl == "pallas":
         from repro_torch.kernels.flash_attention import ops as fa_ops

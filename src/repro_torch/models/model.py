@@ -56,7 +56,9 @@ def param_tree(module) -> dict:
 
 class Model(nn.Module):
     """``Model(cfg, device=None, seed=0)``: ``device`` defaults to ``cuda``
-    and raises without a GPU; pass ``device="cpu"`` to run on the CPU."""
+    and raises without a GPU; pass ``device="cpu"`` to run on the CPU.
+    ``device="meta"`` shapes every weight as the drawn build does and
+    draws nothing (the dry-run's cost counts)."""
 
     def __init__(self, cfg: ModelConfig, device=None, seed: int = 0):
         super().__init__()
@@ -66,7 +68,9 @@ class Model(nn.Module):
                              torch_dtype(cfg.param_dtype), self.device)
         self._periods = None
 
-    def _generator(self, seed: int) -> torch.Generator:
+    def _generator(self, seed: int) -> torch.Generator | None:
+        if self.device.type == "meta":      # nothing to draw (dry runs)
+            return None
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         return gen

@@ -37,6 +37,7 @@ of them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -300,6 +301,9 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device,
         "frame_ro": torch.zeros((n_pages,), dtype=torch.bool, device=device),
     }
     return cache
+
+
+cache_spec = functools.partial(init_cache, device="meta")
 
 
 # ---------------------------------------------------------------------------

@@ -70,8 +70,8 @@ def init(cfg: AdamWConfig, params: dict) -> dict:
     }
     if cfg.keep_master and any(p.dtype != torch.float32
                                for p in leaves(params)):
-        state["master"] = tree_map(lambda p: p.detach().float().clone(),
-                                   params)
+        state["master"] = tree_map(
+            lambda p: _like(_local(p).detach().float().clone(), p), params)
     return state
 
 

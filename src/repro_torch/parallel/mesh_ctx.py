@@ -89,6 +89,12 @@ def axes_group(mesh, axes: Sequence[str]):
     return _GROUPS[key]
 
 
+def forget_groups() -> None:
+    """Drop the groups :func:`axes_group` made (their default group has
+    ended, or is about to)."""
+    _GROUPS.clear()
+
+
 _CTX: MeshContext | None = None
 
 

@@ -1,5 +1,6 @@
 """Port hygiene: the PyTorch package, chip_smoke.py, the port's benchmarks
-(the serving-memory bench and the paper's figures), its examples and the
+(the serving-memory bench, the paper's figures, the kernel, EMem and
+roofline benches and their runner), its examples and the
 rank bodies the multi-rank tests spawn import neither JAX nor the
 reference package (nor the reference's benchmark modules), the entry
 points refuse
@@ -19,6 +20,10 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "benchmarks" / "vm_bench_torch.py",
     ROOT / "benchmarks" / "figs_torch.py",
+    ROOT / "benchmarks" / "kernel_bench_torch.py",
+    ROOT / "benchmarks" / "emem_bench_torch.py",
+    ROOT / "benchmarks" / "roofline_torch.py",
+    ROOT / "benchmarks" / "run_torch.py",
     ROOT / "examples" / "serve_lm_torch.py",
     ROOT / "examples" / "train_lm_torch.py",
     ROOT / "examples" / "quickstart_torch.py",
@@ -85,7 +90,10 @@ def _example(name):
 def test_entry_points_raise_without_cuda(monkeypatch):
     """With no GPU, Model, the weight bridge, the serve and train CLIs, the
     quickstart and emulated-memory examples, the emulated memory and its
-    VM raise unless the caller asks for the CPU; asking for it works."""
+    VM, and the kernel and EMem benches raise unless the caller asks for
+    the CPU; asking for it works.  The dry-run is a host-only tool by
+    design (meta tensors over a fake group), as phase paper's figures
+    are: it counts without a GPU."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core import emem
     from repro_torch.emem_vm import EMemVM, VMConfig
@@ -115,6 +123,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert emem.create(spec, device="cpu").device.type == "cpu"
     vm = EMemVM(VMConfig(spec=spec, n_vpages=8, cache_sets=2), device="cpu")
     assert vm.data.device.type == vm.cache["data"].device.type == "cpu"
+    import sys
+    sys.path.insert(0, str(ROOT))
+    from benchmarks import emem_bench_torch, kernel_bench_torch
+    for bench in (kernel_bench_torch, emem_bench_torch):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            bench.rows()
+    from repro_torch.launch import dryrun
+    rec = dryrun.count_on_one_rank(cfg, "decode", 2, 16)
+    assert rec["roofline"]["flops"] > 0 and rec["fits_80gb"]
 
 
 #: the kernel wrapper modules, one per CUDA library

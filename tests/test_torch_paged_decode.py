@@ -181,8 +181,10 @@ def _check_shard_split(n_shards, window):
 def test_resolve_impl():
     """'auto' takes the composed oracle on CPU tensors and the kernels on
     CUDA ones; 'fused' on the CPU raises (no interpret mode); a ragged head
-    group raises."""
+    group raises, but for 'composed' and for 'auto' on meta tensors (the
+    dry-run's counting device), which take the composed oracle."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    meta = torch.device("meta")
     assert pt_ops.resolve_impl("auto", 8, 2, cpu) == "composed"
     assert pt_ops.resolve_impl("auto", 8, 2, cuda) == "fused"
     assert pt_ops.resolve_impl("composed", 8, 2, cuda) == "composed"
@@ -191,3 +193,11 @@ def test_resolve_impl():
         pt_ops.resolve_impl("fused", 8, 2, cpu)
     with pytest.raises(ValueError):
         pt_ops.resolve_impl("auto", 7, 2, cpu)
+    for flag, dev in (("auto", cuda), ("fused", cuda), ("fused", cpu),
+                      ("auto", cpu)):
+        with pytest.raises(ValueError):
+            pt_ops.resolve_impl(flag, 2, 4, dev)
+    assert pt_ops.resolve_impl("auto", 2, 4, meta) == "composed"
+    assert pt_ops.resolve_impl("auto", 8, 2, meta) == "composed"
+    for dev in (cpu, cuda, meta):
+        assert pt_ops.resolve_impl("composed", 2, 4, dev) == "composed"
