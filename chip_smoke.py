@@ -23,8 +23,9 @@ cross-attention, K1 and K4 in its decoder's self-attention); then
 training on the plain paths (qwen3-0.6b and seamless-m4t-medium), on one
 card and on a world-1 NCCL mesh; then the paper's analytic models and the
 examples built on them; then the dry-run and roofline tooling, held to
-measured steps on the card.  Each phase prints one JSON line with its seconds
-(phase archs one per arch):
+measured steps on the card; then tensor-parallel serving (the split form,
+``Model.shard``) over two processes on the card.  Each phase prints one
+JSON line with its seconds (phase archs one per arch):
 
 1. build      -- nvcc builds the five kernel libraries from the checkout's
                  sources, all at once: paged decode (K1, whose entries are
@@ -242,7 +243,24 @@ measured steps on the card.  Each phase prints one JSON line with its seconds
                  paths), their roofline bounds, device ms and roofline
                  shares, the prefill's counted FLOPs within 5% of the
                  analytic count; benchmarks/run_torch.py's kernel and
-                 emem rows (K3-K6 at the reference's bench shapes).
+                 emem rows (K3-K6 at the reference's bench shapes);
+23. tp_serve  -- tensor-parallel serving: K1 + K2 on shards whose query
+                 heads lie inside one KV-head group (danube D 80 G 4 with
+                 2 and 1 heads, mixtral D 128 G 4 with 2, qwen3 D 128 G 2
+                 with 1; f32 and bf16, windows None and 64) against the
+                 composed path; then two processes on the one card (gloo,
+                 a (1, 2) mesh, tp 2) hold qwen3-0.6b's split form at full
+                 width: in f32 a 4-request pooled trace at CUT_LAYERS's
+                 depth (K1, K2) serves the one-card engine's tokens, and at
+                 full depth the batch layout's prefill (K3) and 8
+                 teacher-forced decode steps (K1 with its write off, K4)
+                 give one card's logits within 2e-4 of their scale; per-
+                 rank weight bytes, collectives per step, a bf16 pooled
+                 step's wall and device ms per rank beside one card's;
+                 and qwen2-moe-a2.7b's split form (24 layers, f32 from a
+                 bf16 draw) with one card's routing gives its logits
+                 within the larger of 2e-4 and 4 times one card's own
+                 disagreement between its kernels' and plain attention.
 
 Then it prints the kernels' JSON line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -1047,15 +1065,18 @@ class PagedStepProbe:
 
 class PinnedRouting:
     """Teacher forcing of the MoE blocks' expert choices: while ``mode`` is
-    "record" each ``moe._route`` call keeps its top-k ids; while it is
-    "replay" each call takes the recorded ids of the same call in order
-    (its weights renormalised from its own probabilities at those ids) and
-    counts the tokens whose own choice differed (``flips``).  Otherwise the
-    routing is untouched."""
+    "record" each ``moe._route`` call keeps its top-k ids and weights;
+    while it is "replay" each call takes the recorded ids of the same call
+    in order (its weights renormalised from its own probabilities at those
+    ids), and while it is "replay_weights" the recorded weights too; both
+    count the tokens whose own choice differed (``flips``).  Otherwise the
+    routing is untouched.  "record" also keeps the largest |router score|
+    (``score_max``, on the device until read)."""
 
     def __init__(self):
-        self.mode, self.ids, self.at = None, [], 0
+        self.mode, self.ids, self.weights, self.at = None, [], [], 0
         self.flips = self.routed = 0
+        self.score_max = None
 
     def __enter__(self):
         from repro_torch.models import moe
@@ -1069,20 +1090,28 @@ class PinnedRouting:
     def start(self, mode: str | None) -> None:
         self.mode, self.at = mode, 0
         if mode == "record":
-            self.ids = []
+            self.ids, self.weights = [], []
 
     def _route(self, cfg, p, xt):
         probs, weights, idx = self.route(cfg, p, xt)
         if self.mode == "record":
             self.ids.append(idx)
-        elif self.mode == "replay":
+            self.weights.append(weights)
+            top = (xt @ p["router"]).float().abs().amax()
+            self.score_max = top if self.score_max is None else \
+                self.score_max.maximum(top)
+        elif self.mode in ("replay", "replay_weights"):
             pinned = self.ids[self.at]
-            self.at += 1
             own = idx.sort(-1).values != pinned.sort(-1).values
             self.flips += int(own.any(-1).sum().item())
             self.routed += idx.shape[0]
-            weights = probs.gather(1, pinned)
-            weights, idx = weights / weights.sum(-1, keepdim=True), pinned
+            if self.mode == "replay":
+                weights = probs.gather(1, pinned)
+                weights = weights / weights.sum(-1, keepdim=True)
+            else:
+                weights = self.weights[self.at]
+            idx = pinned
+            self.at += 1
         return probs, weights, idx
 
 
@@ -2884,11 +2913,12 @@ MESH_VM_SETS = 16
 MESH_PROFILE_STEPS = 5
 
 
-def mesh_step(dev, model):
+def mesh_step(dev, model, iters: int = MESH_PROFILE_STEPS):
     """One pooled decode step of 8 sequences at 256 tokens over scrambled
     tables (phase profile's inputs) on ``model``, under whatever mesh
-    context is installed: device ms and device ops per step
-    (torch.profiler), and the collectives one step calls."""
+    context is installed: wall ms and device ms and device ops per step
+    (torch.profiler), each over ``iters`` steps, and the collectives one
+    step calls."""
     import torch
     from repro_torch.parallel import mesh_ctx
     from repro_torch.serve.fused_decode import sampled_decode_step
@@ -2911,11 +2941,11 @@ def mesh_step(dev, model):
     calls = dict(mesh_ctx.CALLS)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    for _ in range(MESH_PROFILE_STEPS):
+    for _ in range(iters):
         step()
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t) / MESH_PROFILE_STEPS * 1e3
-    ms, by_name = device_profile(step, iters=MESH_PROFILE_STEPS)
+    wall = (time.perf_counter() - t) / iters * 1e3
+    ms, by_name = device_profile(step, iters=iters)
     if ms is None:
         raise AssertionError("the profiler saw no device time in a step")
     nccl = {k[:60]: v for k, v in by_name.items() if "nccl" in k.lower()}
@@ -4720,11 +4750,628 @@ def phase_dryrun(dev):
     return res
 
 
+# -- phase 23 ------------------------------------------------------------------
+
+#: phase tp_serve (a): K1 + K2 on tensor-parallel shards whose query heads
+#: lie inside one KV-head group (a rank's heads at tp > Hkv), at full widths:
+#: (arch, head dim, KV-head group, the shard's query heads); 8 KV heads each
+TP_SPLIT_SHAPES = (("h2o-danube-1.8b", 80, 4, (2, 1)),
+                   ("mixtral-8x7b", 128, 4, (2,)),
+                   ("qwen3-0.6b", 128, 2, (1,)))
+#: (a)'s bf16 tolerance on acc, m and l: one bf16 rounding (the f32 one
+#: is K2_RTOL / K2_ATOL / M_ATOL)
+TP_BF16_RTOL = 2.0 ** -7
+#: (b) qwen3-0.6b at full width over two processes on the one card: gloo
+#: (NCCL takes one card per rank), a (1, 2) ("data", "model") mesh
+TP_WORLD = 2
+#: (b)'s pooled trace: 4 requests of the serve phase's trace shape with
+#: shorter prompts and outputs (75 decode steps), served at CUT_LAYERS's
+#: depth (tp_serve_cfg), so that its host-bound steps fit the phase's
+#: minute
+TP_TRACE = dict(SERVE_TRACE, n_requests=4, prompt_len_short=16,
+                prompt_len_long=48, out_len_short=8, out_len_long=16)
+#: (b)'s batch layout: one prefill of B x S tokens, then STEPS decode steps
+#: of teacher-forced tokens
+TP_BATCH, TP_STEPS = (8, 64), 8
+#: split form against one card in f32, each step's logits: within
+#: TP_LOGIT_RTOL times the largest |logit| plus TP_LOGIT_ATOL
+TP_LOGIT_RTOL, TP_LOGIT_ATOL = 2e-4, 1e-4
+#: (c) the MoE arch at phase archs' depth (ARCHS_LAYERS), drawn in bf16
+#: and held in f32 (two ranks' shards and one card's whole weights in f32
+#: fit the card only when drawn so, one rank after the other), its batch
+#: layout's prefill and decode steps twice: with the one card's expert
+#: choices pinned, as phase archs pins them (the router, whole on every
+#: rank, weighs them from its own scores), against the one card computing
+#: every product in a rank's shape (TwoRankOrder: 24 random layers turn
+#: the last bits the shapes change into 6e-2 of the logits once the
+#: router weighs its choices itself, so the plain one card is no
+#: yardstick there); and with the choices' weights pinned too, against
+#: the one card itself
+TP_MOE, TP_MOE_BATCH, TP_MOE_STEPS = "qwen2-moe-a2.7b", (4, 32), 4
+#: (c)'s two pinnings: PinnedRouting's modes
+TP_MOE_PINS = ("replay", "replay_weights")
+#: seconds the two ranks may take before they are killed
+TP_TIMEOUT = 300
+#: (b)'s bf16 pooled steps timed, and then profiled, per rank and on one
+#: card (phase mesh times MESH_PROFILE_STEPS): fewer, for the phase's
+#: minute, as each rank's host holds its steps at ~0.3 s
+TP_PROFILE_STEPS = 2
+
+
+def split_group_case(x, hl, head_start, window, err, what):
+    """One shard of ``hl`` query heads from ``head_start`` of ``x``'s
+    heads: ``ops.paged_decode_shard`` fused (K1 with the rotary, then K2
+    on [B, 1, hl, D]) against composed: the pages K1 wrote bit for bit,
+    (acc, m, l) within K2's f32 tolerance, or one bf16 rounding in bf16."""
+    import torch
+    from repro_torch.kernels.paged_decode import ops
+    q = x["q"][:, head_start:head_start + hl].contiguous()
+    g = x["group"]
+    if ops.resolve_impl("auto", hl, g, q.device) != "fused":
+        raise AssertionError(f"auto does not take {hl} heads of G {g} fused")
+    outs = {impl: ops.paged_decode_shard(
+        q, x["k_new"], x["v_new"], x["kp"].clone(), x["vp"].clone(),
+        x["lengths"], x["bt"], x["fl"], x["fr"], x["wm"], sid=0, n_shards=1,
+        head_start=head_start, group=g, window=window,
+        max_pages=x["max_pages"], use_vm=True, impl=impl,
+        rope_theta=QKV_THETA) for impl in ("fused", "composed")}
+    torch.cuda.synchronize()
+    f, c = outs["fused"], outs["composed"]
+    if not (torch.equal(f[3], c[3]) and torch.equal(f[4], c[4])):
+        raise AssertionError(f"K1 pages differ from plain: {what}")
+    bf16 = x["q"].dtype == torch.bfloat16
+    for name, a, r in zip("acc m l".split(), f[:3], c[:3]):
+        dlt = (a - r).abs()
+        err["k2"] = max(err["k2"], dlt.max().item())
+        if bf16:
+            tol = TP_BF16_RTOL * r.abs() + K2_ATOL
+        else:
+            tol = M_ATOL if name == "m" else K2_ATOL + K2_RTOL * r.abs()
+        if not bool((dlt <= tol).all()):
+            raise AssertionError(f"K2 {name} differs from plain by "
+                                 f"{dlt.max().item()}: {what}")
+
+
+def check_split_groups(dev, err):
+    """(a): every shape of TP_SPLIT_SHAPES in f32 and bf16, windows None
+    and 64, at the first, a middle and the last tp rank's heads (the
+    middle one in the second half of its group): ``split_group_case``."""
+    import torch
+    cases = []
+    for arch, d, g, hls in TP_SPLIT_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = kernel_case(41, dtype, dev, g=g, d=d)
+            for hl in hls:
+                tp = HKV * g // hl
+                for index in sorted({0, tp // 2 + 1, tp - 1}):
+                    for window in (None, 64):
+                        what = (f"{arch} {dtype} D {d} G {g} heads "
+                                f"[{index * hl}, {(index + 1) * hl}) "
+                                f"window {window}")
+                        split_group_case(x, hl, index * hl, window, err,
+                                         what)
+                        cases.append(what)
+    return cases
+
+
+class TwoRankOrder:
+    """One card's whole weights computed in the pieces of the split form's
+    two tensor-parallel ranks (tp 2, the heads, KV heads and experts
+    split in halves): the q/k/v projections, the decode attention (K4)
+    and the unembedding on each half of the columns or heads, the
+    attention's ``wo`` product as its two halves' products added, the
+    experts' SwiGLU on each half of the experts, and each MoE block's
+    output as the two ranks' partials added, each one ``moe._combine``
+    itself over its half of the experts and of the shared expert's
+    columns.  The values are the whole model's; only the shapes of the
+    products and the order of the sums change, to those of the ranks."""
+
+    def __enter__(self):
+        from repro_torch.kernels.paged_decode import flash_ops
+        from repro_torch.models import layers, moe
+        from repro_torch.parallel import mesh_ctx
+        patches = [(layers, "qkv_projections", self._qkv),
+                   (layers, "attention_out", self._attention_out),
+                   (layers, "unembed", self._unembed),
+                   (flash_ops, "decode_attention", self._decode),
+                   (moe, "_experts", self._experts),
+                   (moe, "_combine", self._combine),
+                   (mesh_ctx, "tp_index", lambda: self.rank),
+                   (mesh_ctx, "tp_sum", lambda x: x)]
+        self.saved = [(mod, name, getattr(mod, name))
+                      for mod, name, _ in patches]
+        self.orig = {name: fn for _, name, fn in self.saved}
+        self.rank = 0
+        for mod, name, fn in patches:
+            setattr(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    @staticmethod
+    def _halves(n: int):
+        return [slice(r * (n // 2), (r + 1) * (n // 2)) for r in range(2)]
+
+    def _qkv(self, cfg, p, x):
+        import torch
+        outs = []
+        for name in "qkv":
+            w = p["w" + name]
+            parts = [x @ w[:, c].contiguous() for c in self._halves(w.shape[1])]
+            if cfg.qkv_bias:
+                parts = [y + p["b" + name][c] for y, c in
+                         zip(parts, self._halves(w.shape[1]))]
+            outs.append(torch.cat(parts, -1))
+        return tuple(outs)
+
+    def _attention_out(self, cfg, p, out):
+        wo = p["wo"]
+        a, b = (out[..., c].contiguous() @ wo[c]
+                for c in self._halves(wo.shape[0]))
+        return a + b
+
+    def _unembed(self, cfg, p, x):
+        import torch
+        if cfg.tie_embeddings:
+            tok = p["tok"]
+            return torch.cat([x @ tok[c].T for c in self._halves(
+                tok.shape[0])], -1)
+        head = p["head"]
+        return torch.cat([x @ head[:, c].contiguous() for c in self._halves(
+            head.shape[1])], -1)
+
+    def _decode(self, q, k, v, lengths, **kw):
+        import torch
+        return torch.cat([self.orig["decode_attention"](
+            q[:, cq].contiguous(), k[:, ck].contiguous(),
+            v[:, ck].contiguous(), lengths, **kw)
+            for cq, ck in zip(self._halves(q.shape[1]),
+                              self._halves(k.shape[1]))], 1)
+
+    def _experts(self, cfg, p, buf):
+        import torch
+        outs = []
+        for r, ex in enumerate(self._halves(cfg.n_experts)):
+            self.rank = r
+            outs.append(self.orig["_experts"](
+                cfg, {k: p[k][ex] for k in ("w_gate", "w_up", "w_down")},
+                buf))
+        return torch.cat(outs)
+
+    def _combine(self, cfg, p, xt, out_buf, flat_e, pos, keep, weights):
+        parts = []
+        for r, (ex, cols) in enumerate(zip(
+                self._halves(cfg.n_experts),
+                self._halves(p["shared"]["w_down"].shape[0]))):
+            self.rank = r
+            shared = {"w_gate": p["shared"]["w_gate"][:, cols].contiguous(),
+                      "w_up": p["shared"]["w_up"][:, cols].contiguous(),
+                      "w_down": p["shared"]["w_down"][cols]}
+            rank_p = {"w_gate": p["w_gate"][ex], "w_down": p["w_down"][ex],
+                      "shared": shared, "shared_gate": p["shared_gate"]}
+            parts.append(self.orig["_combine"](
+                cfg, rank_p, xt, out_buf[ex], flat_e, pos, keep, weights))
+        return parts[0] + parts[1]
+
+
+def batch_logits(model, toks, steps: int, attn_impl: str = "pallas"):
+    """The batch layout with the kernels (attn_impl "pallas"): prefill of
+    ``toks[:, :S]`` (K3), then ``steps`` decode steps of the next tokens,
+    teacher-forced (K1 with its write off, K4); with ``attn_impl="ref"``
+    the same on the plain paths.  Returns (the f32 logits of the prefill
+    and of every step over the real vocab, [1 + steps, B, V] on the host;
+    the collectives of the prefill and of the decode steps under a mesh
+    context)."""
+    import torch
+    from repro_torch.parallel import mesh_ctx
+    cfg = dataclasses.replace(model.cfg, kv_layout="batch",
+                              attn_impl=attn_impl)
+    m = model.with_config(cfg)
+    b, s = toks.shape[0], toks.shape[1] - steps
+    mesh_ctx.reset_calls()
+    logits, cache = m.prefill({"tokens": toks[:, :s]}, max_len=s + steps)
+    calls = {"prefill": dict(mesh_ctx.CALLS)}
+    out = [logits[:, :cfg.vocab_size].cpu()]
+    mesh_ctx.reset_calls()
+    for k in range(steps):
+        lengths = torch.full((b,), s + k + 1, dtype=torch.int32,
+                             device=toks.device)
+        logits, cache = m.decode_step(toks[:, s + k:s + k + 1], cache,
+                                      lengths)
+        out.append(logits[:, :cfg.vocab_size].cpu())
+    calls["decode"] = dict(mesh_ctx.CALLS)
+    return torch.stack(out).numpy(), calls
+
+
+def f32_model(cfg, dev, split: bool = False):
+    """``cfg``'s weights drawn in bf16 from seed 0 on ``dev`` and held in
+    f32 (the same values on one card and on every rank): the whole model,
+    or with ``split`` this rank's split form, the ranks drawing one after
+    another so that one whole bf16 draw is on the card at a time."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models.model import Model
+    cfg16 = dataclasses.replace(cfg, param_dtype="bfloat16",
+                                compute_dtype="bfloat16")
+    model = None
+    for r in range(dist.get_world_size() if split else 1):
+        if not split or r == dist.get_rank():
+            model = Model(cfg16, device=dev, seed=0)
+            if split:
+                model = model.shard()     # the whole draw is dropped here
+            torch.cuda.empty_cache()
+        if split:
+            dist.barrier()
+    with torch.no_grad():
+        for p in model.params.parameters():
+            p.data = p.data.float()
+    model.cfg = dataclasses.replace(cfg16, param_dtype="float32",
+                                    compute_dtype="float32")
+    torch.cuda.empty_cache()
+    return model
+
+
+def weight_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.params.parameters())
+
+
+def tp_counts():
+    """K1-K4's launch counts and the collectives since the last reset."""
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.paged_decode import flash as K4
+    from repro_torch.kernels.paged_decode import kernel as K
+    from repro_torch.parallel import mesh_ctx
+    return ({**K.LAUNCHES, **{k: v for k, v in K3.LAUNCHES.items()
+                              if k == "flash_attention"}, **K4.LAUNCHES},
+            dict(mesh_ctx.CALLS))
+
+
+def tp_reset():
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.paged_decode import flash as K4
+    from repro_torch.kernels.paged_decode import kernel as K
+    from repro_torch.parallel import mesh_ctx
+    for mod in (K, K3, K4):
+        mod.reset_launch_counts()
+    mesh_ctx.reset_calls()
+
+
+def moe_toks(dev):
+    import torch
+    b, s = TP_MOE_BATCH
+    rng = np.random.default_rng(43)
+    return torch.tensor(rng.integers(0, moe_cfg().vocab_size,
+                                     (b, s + TP_MOE_STEPS)), device=dev)
+
+
+def tp_toks(dev):
+    import torch
+    b, s = TP_BATCH
+    rng = np.random.default_rng(47)
+    return torch.tensor(rng.integers(0, full_cfg("float32").vocab_size,
+                                     (b, s + TP_STEPS)), device=dev)
+
+
+def tp_serve_cfg():
+    """(b)'s served model: qwen3-0.6b in f32 at CUT_LAYERS's depth (every
+    collective of a step is a host round trip through gloo, 5 a layer),
+    on the serve phase's pool."""
+    return full_cfg("float32", kv_pool_pages=SERVE_POOL,
+                    n_layers=CUT_LAYERS["qwen3-0.6b"])
+
+
+def moe_cfg():
+    return dataclasses.replace(arch_cfg(TP_MOE), kv_layout="batch",
+                               attn_impl="pallas")
+
+
+def tp_rank(rank: int, workdir: str, device: str) -> None:
+    """One of the TP_WORLD processes of phase tp_serve: a gloo group over a
+    ``file://`` store in ``workdir``, the (1, 2) mesh context, and on the
+    card (b) qwen3-0.6b's split form in f32 serving TP_TRACE on the pooled
+    layout (K1, K2) at CUT_LAYERS's depth and at full depth the batch
+    layout's prefill (K3) and teacher-forced decode steps (K1 write off,
+    K4), then in bf16 one profiled pooled decode step; (c) the MoE arch's
+    split form with the one card's expert choices pinned, then with their
+    weights too (TP_MOE_PINS).  Saves what it saw as ``rank<r>.pkl``; the
+    group is destroyed at the end."""
+    import pickle
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.parallel import mesh_ctx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    torch.cuda.set_device(dev.index or 0)
+    init_process_group("cpu", rank=rank, world_size=TP_WORLD,
+                       init_method=f"file://{workdir}/store")
+    out = {"rank": rank}
+    try:
+        with open(os.path.join(workdir, "routing.pkl"), "rb") as f:
+            routing = pickle.load(f)
+        out["backend"] = dist.get_backend()
+        mesh_ctx.set_context(make_mesh((1, TP_WORLD), ("data", "model"),
+                                       "cpu"))
+        cfg = tp_serve_cfg()
+        t = time.monotonic()
+        tp_reset()
+        outputs, stats, _ = serve_model(
+            dev, cfg, SERVE_ENGINE, TP_TRACE,
+            model=Model(cfg, device=dev, seed=0).shard())
+        launches, calls = tp_counts()
+        out["serve"] = {"outputs": outputs, "serve_s": time.monotonic() - t,
+                        "decode_steps": stats["decode_steps"],
+                        "swapped": stats["swapped"],
+                        "telemetry": stats["telemetry"],
+                        "launches": launches, "collectives": calls}
+        t = time.monotonic()
+        model = Model(full_cfg("float32"), device=dev, seed=0).shard()
+        torch.cuda.empty_cache()
+        out["shard"] = model.tp_shard
+        out["weight_bytes_f32"] = weight_bytes(model)
+        tp_reset()
+        out["batch"], out["batch_calls"] = batch_logits(model, tp_toks(dev),
+                                                        TP_STEPS)
+        out["batch_launches"] = tp_counts()[0]
+        del model
+        torch.cuda.empty_cache()
+        laps = out["laps_s"] = {"batch": time.monotonic() - t}
+        t = time.monotonic()
+        m16 = Model(full_cfg("bfloat16"), device=dev, seed=0).shard()
+        torch.cuda.empty_cache()
+        out["weight_bytes_bf16"] = weight_bytes(m16)
+        out["step_bf16"] = mesh_step(dev, m16, TP_PROFILE_STEPS)
+        del m16
+        torch.cuda.empty_cache()
+        laps["bf16_step"] = time.monotonic() - t
+        t = time.monotonic()
+        moe = f32_model(moe_cfg(), dev, split=True)
+        out["moe_weight_bytes_f32"] = weight_bytes(moe)
+        out["moe"], out["moe_flips"] = {}, {}
+        tp_reset()
+        laps["moe_draw"] = time.monotonic() - t
+        for mode in TP_MOE_PINS:
+            t = time.monotonic()
+            pin = PinnedRouting()
+            pin.ids = [i.to(dev) for i, _ in routing]
+            pin.weights = [w.to(dev) for _, w in routing]
+            with pin:
+                pin.start(mode)
+                out["moe"][mode], out["moe_calls"] = batch_logits(
+                    moe, moe_toks(dev), TP_MOE_STEPS)
+            out["moe_flips"][mode] = f"{pin.flips}/{pin.routed}"
+            laps[f"moe_{mode}"] = time.monotonic() - t
+        out["moe_launches"] = tp_counts()[0]
+        del moe
+        torch.cuda.empty_cache()
+        with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        mesh_ctx.clear_context()
+        mesh_ctx.forget_groups()
+        dist.destroy_process_group()
+
+
+def logits_close(got, want, what: str, failed: list,
+                 rtol: float = TP_LOGIT_RTOL) -> dict:
+    """``got`` within ``rtol`` * max |want| + TP_LOGIT_ATOL of ``want`` at
+    every step, or ``what`` goes to ``failed``; returns the readings, the
+    relative error of each step among them."""
+    scale = np.abs(want).max()
+    diff = np.abs(got - want)
+    rel = float(diff.max() / scale)
+    if not np.isfinite(got).all() or diff.max() > rtol * scale \
+            + TP_LOGIT_ATOL:
+        failed.append(f"{what}: split form against one card max |diff| "
+                      f"{diff.max()} = {rel} of max |logit| {scale} > {rtol}")
+    agree = (got.argmax(-1) == want.argmax(-1)).mean()
+    return {"max_abs_diff": float(diff.max()), "max_abs_logit": float(scale),
+            "rel": rel, "rtol": rtol, "argmax_agree": float(agree),
+            "rel_by_step": [float(d.max() / scale) for d in diff]}
+
+
+def phase_tp_serve(dev):
+    """Tensor-parallel serving (``Model.shard``) on the card: (a) K1 + K2
+    on shards whose query heads lie inside one KV-head group
+    (``check_split_groups``); (b) qwen3-0.6b at full width over TP_WORLD
+    processes on the one card (gloo, a (1, 2) mesh, tp 2), each holding
+    its half of the heads, MLP columns and vocab: in f32 the pooled
+    trace's greedy tokens (at CUT_LAYERS's depth) equal the one-card
+    engine's and the batch layout's prefill and teacher-forced decode
+    logits (full depth) are within TP_LOGIT_RTOL of one card's; every
+    rank's the same; per-rank weight bytes (f32, bf16), collectives per
+    decode step, K1-K4 launches, one bf16 pooled step's wall and device ms
+    per rank beside one card's; (c) the MoE arch in the split form with
+    the one card's expert choices pinned, its logits against the one card
+    summing in the two ranks' order (TwoRankOrder), and with their
+    weights pinned too, against the one card itself: each within
+    TP_LOGIT_RTOL or, where larger, ORDER_FACTOR times one card's own
+    disagreement between its kernels' and its plain attention under the
+    same pinning; beside them the split form against the one card with
+    the choices alone pinned, the one card's own disagreement across the
+    two orders, and the router's largest |score|.  Returns ({kernel:
+    launches on the split form's paths, both ranks}, the max errors of
+    (a), results)."""
+    import pickle
+    import shutil
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.models.model import Model
+    res, err = {"card": card()}, {"k2": 0.0}
+    torch.cuda.empty_cache()
+    res["allocated_gb_at_start"] = torch.cuda.memory_allocated() / 1e9
+    t = time.monotonic()
+    res["split_group_cases"] = len(check_split_groups(dev, err))
+    res["split_group_s"] = time.monotonic() - t
+    # one card's results, f32 (and a bf16 step)
+    t = time.monotonic()
+    one_tokens, one_stats, one_s = serve_model(dev, tp_serve_cfg(),
+                                               SERVE_ENGINE, TP_TRACE)
+    model = Model(full_cfg("float32"), device=dev, seed=0)
+    one_batch, _ = batch_logits(model, tp_toks(dev), TP_STEPS)
+    res["one_card_weight_bytes_f32"] = weight_bytes(model)
+    del model
+    m16 = Model(full_cfg("bfloat16"), device=dev, seed=0)
+    res["one_card_weight_bytes_bf16"] = weight_bytes(m16)
+    res["one_card_step_bf16"] = mesh_step(dev, m16, TP_PROFILE_STEPS)
+    del m16
+    torch.cuda.empty_cache()
+    laps = res["one_card_laps_s"] = {"qwen3": time.monotonic() - t}
+    t0 = time.monotonic()
+    moe = f32_model(moe_cfg(), dev)
+    laps["moe_draw"] = time.monotonic() - t0
+    pin, plain_moe = PinnedRouting(), {}
+    with pin:
+        t0 = time.monotonic()
+        pin.start("record")
+        one_moe, _ = batch_logits(moe, moe_toks(dev), TP_MOE_STEPS)
+        laps["moe_record"] = time.monotonic() - t0
+        for mode in TP_MOE_PINS:
+            t0 = time.monotonic()
+            pin.start(mode)
+            plain_moe[mode], _ = batch_logits(moe, moe_toks(dev),
+                                              TP_MOE_STEPS, attn_impl="ref")
+            laps[f"moe_plain_{mode}"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        pin.start("replay")
+        with TwoRankOrder():
+            two_order_moe, _ = batch_logits(moe, moe_toks(dev), TP_MOE_STEPS)
+        laps["moe_two_order"] = time.monotonic() - t0
+    routing = [(i.cpu(), w.cpu()) for i, w in zip(pin.ids, pin.weights)]
+    res["moe_router_score_max"] = pin.score_max.item()
+    res["moe_one_card_weight_bytes_f32"] = weight_bytes(moe)
+    del moe, pin
+    torch.cuda.empty_cache()
+    res["one_card_s"] = time.monotonic() - t
+    # the ranks
+    t = time.monotonic()
+    workdir = os.path.join(ROOT, "build", f"tp_serve_{os.getpid()}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    with open(os.path.join(workdir, "routing.pkl"), "wb") as f:
+        pickle.dump(routing, f)
+    handle = mp.start_processes(tp_rank, args=(workdir, str(dev)),
+                                nprocs=TP_WORLD,
+                                join=False, start_method="spawn")
+    deadline = time.monotonic() + TP_TIMEOUT
+    try:
+        while not handle.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() >= deadline:
+                raise AssertionError("phase tp_serve's ranks outlived "
+                                     f"{TP_TIMEOUT} s")
+    finally:
+        for p in handle.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    ranks = []
+    for r in range(TP_WORLD):
+        with open(os.path.join(workdir, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    shutil.rmtree(workdir, ignore_errors=True)
+    res["ranks_s"] = time.monotonic() - t
+    # (b) and (c) against one card
+    r0, failed = ranks[0], []
+    cfg = full_cfg("float32")
+    layers = cfg.n_layers
+    for o in ranks:
+        if o["serve"]["outputs"] != one_tokens:
+            bad = sorted(u for u in one_tokens
+                         if one_tokens[u] != o["serve"]["outputs"].get(u))
+            failed.append(f"rank {o['rank']}: split-form tokens differ from "
+                          f"one card's for {bad}")
+        if o["serve"]["telemetry"] != one_stats["telemetry"]:
+            failed.append(f"rank {o['rank']}: telemetry differs")
+        for key, a, b in [("batch", o["batch"], r0["batch"])] + [
+                (f"moe {m}", o["moe"][m], r0["moe"][m]) for m in TP_MOE_PINS]:
+            if not np.array_equal(a, b):
+                failed.append(f"{key} logits differ between ranks")
+    res["batch"] = logits_close(r0["batch"], one_batch, "qwen3-0.6b batch",
+                                failed)
+    # the MoE arch's own disagreement across two summation orders (the
+    # kernels' attention against the plain one, the same pinning) bounds
+    # each gate from below, as in phase archs.  With the choices alone
+    # pinned the split form is held to the one card summing in its order;
+    # with their weights pinned too, to the one card itself
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+    res["moe"] = {}
+    for mode, want in (("replay", two_order_moe), ("replay_weights",
+                                                   one_moe)):
+        order = rel(plain_moe[mode], one_moe)
+        res["moe"][mode] = logits_close(
+            r0["moe"][mode], want, f"{TP_MOE} {mode}", failed,
+            rtol=max(TP_LOGIT_RTOL, ORDER_FACTOR * order))
+        res["moe"][mode].update(reordered_rel=order,
+                                routing_flips=r0["moe_flips"][mode])
+    res["moe"]["replay"].update(
+        split_vs_one_card_rel=rel(r0["moe"]["replay"], one_moe),
+        two_rank_order_vs_one_card_rel=rel(two_order_moe, one_moe))
+    steps = r0["serve"]["decode_steps"]
+    per_step = {k: v / steps for k, v in r0["serve"]["collectives"].items()}
+    batch_step = {k: v / TP_STEPS for k, v in r0["batch_calls"]["decode"]
+                  .items()}
+    if sum(batch_step.values()) != 2 * layers + 2:
+        failed.append(f"batch decode step collectives {batch_step}, not 2 a "
+                      "layer plus 2")
+    launches = {}
+    for o in ranks:
+        cut = tp_serve_cfg().n_layers
+        want = {"paged_kv_write": cut * steps,
+                "paged_gather_attend": cut * steps}
+        if {k: o["serve"]["launches"][k] for k in want} != want:
+            failed.append(f"rank {o['rank']} serve launches "
+                          f"{o['serve']['launches']}")
+        b = o["batch_launches"]
+        if b["flash_attention"] != layers or \
+                b["flash_decode"] != layers * TP_STEPS or \
+                b["paged_kv_write"] != layers * TP_STEPS:
+            failed.append(f"rank {o['rank']} batch launches {b}")
+        for src in (o["serve"]["launches"], b, o["moe_launches"]):
+            for k, n in src.items():
+                launches[k] = launches.get(k, 0) + n
+    res.update(
+        serve={"requests": len(one_tokens), "decode_steps": steps,
+               "reduced": reduced("qwen3-0.6b"),
+               "one_card_decode_steps": one_stats["decode_steps"],
+               "one_card_serve_s": one_s,
+               "rank_serve_s": [o["serve"]["serve_s"] for o in ranks],
+               "collectives_per_step": per_step},
+        batch_collectives_per_step=batch_step,
+        batch_prefill_collectives=r0["batch_calls"]["prefill"],
+        moe_collectives_per_step={k: v / TP_MOE_STEPS for k, v in
+                                  r0["moe_calls"]["decode"].items()},
+        weight_bytes={"f32": [o["weight_bytes_f32"] for o in ranks],
+                      "bf16": [o["weight_bytes_bf16"] for o in ranks],
+                      "moe_f32": [o["moe_weight_bytes_f32"] for o in ranks]},
+        step_bf16=[{k: o["step_bf16"][k] for k in (
+            "wall_ms", "device_ms", "device_ops", "collectives")}
+            for o in ranks],
+        backend=r0["backend"], launches=launches,
+        rank_laps_s=[o["laps_s"] for o in ranks])
+    print(f"tp_serve ({res['card']}): per-rank weights "
+          f"{res['weight_bytes']['bf16']} B bf16 (one card "
+          f"{res['one_card_weight_bytes_bf16']}); collectives a decode step: "
+          f"pooled {per_step}, batch {batch_step}; bf16 pooled step per rank "
+          f"wall / device ms {[(s['wall_ms'], s['device_ms']) for s in res['step_bf16']]}"
+          f" (one card {res['one_card_step_bf16']['wall_ms']} / "
+          f"{res['one_card_step_bf16']['device_ms']}); K1-K4 launches "
+          f"{launches}", flush=True)
+    if failed:
+        emit({"phase": "tp_serve", "failed": failed, **res})
+        raise AssertionError(f"phase tp_serve failed: {failed}")
+    return launches, err, res
+
+
 # -- main -----------------------------------------------------------------------
 
 PHASES = ("build,kernels,teacher,profile,serve,tokens,flash,prefill,batch,"
           "ssd,ssm_prefill,ssm_serve,gather,emem,vm,mesh,vm_bench,archs,"
-          "encdec,train,mesh_train,paper,dryrun")
+          "encdec,train,mesh_train,paper,dryrun,tp_serve")
 #: the kernels' libraries, sources and the TPU kernels they replace
 KERNELS = (
     ("paged_kv_write", "k1", "src/repro_torch/kernels/paged_decode/csrc/"
@@ -4922,6 +5569,14 @@ def main(argv=None) -> int:
         run("paper", phase_paper, dev)
     if "dryrun" in phases:
         run("dryrun", phase_dryrun, dev)
+    if "tp_serve" in phases:
+        t = time.monotonic()
+        tp_launches, e, res = phase_tp_serve(dev)
+        err["k2"] = max(err.get("k2", 0.0), e["k2"])
+        for name, n in tp_launches.items():
+            launches[name] += n
+        emit({"phase": "tp_serve", "seconds": time.monotonic() - t,
+              "max_abs_err": e, **res})
 
     def ms(key):
         # the device time of timed(); the event-timed loop where neither

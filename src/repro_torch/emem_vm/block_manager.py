@@ -864,7 +864,11 @@ class BlockManager:
         take the two-hop promotion transparently.  Raises
         :class:`OutOfFrames` (after reclaiming the retention pool) if the
         device pool cannot hold the pages; the record is left intact in
-        that case.  Returns the number of pages swapped back in."""
+        that case.  Returns the number of pages swapped back in.
+
+        ``tokens`` (the sequence's tokens, for prefix sharing) are recorded
+        only as far as the restored pages map them: a later match can
+        share no page the sequence does not hold."""
         rec = self._swapped[tag]
         need = len(rec.pages)
         if need > self.allocator.free_count():
@@ -884,8 +888,17 @@ class BlockManager:
         self.page_io.write(assignments)
         del self._swapped[tag]
         self.shared_len[seq] = 0            # every restored frame is private
+        # a donor offers only tokens whose pages it maps: clip ``tokens`` to
+        # the leading pages the restore mapped (the reference records them
+        # all, and a later match past them asserts in begin_seq)
+        mapped = 0
+        while mapped < self.max_lpages and self.block_table[seq, mapped] >= 0:
+            mapped += 1
+        if tokens is not None:
+            tokens = np.asarray(tokens, np.int32).ravel()[
+                :mapped * self.page_slots]
         if self.share_prefixes and tokens is not None and len(tokens):
-            self._prompts[seq] = np.asarray(tokens, np.int32).ravel().copy()
+            self._prompts[seq] = tokens.copy()
             if self._tree is not None:
                 self._tree.insert_live(seq, self._prompts[seq])
         self.counters["seq_restores"] += 1

@@ -17,6 +17,20 @@ def _use_kernel(use_kernel: bool | None, q) -> bool:
     return q.device.type == "cuda" if use_kernel is None else use_kernel
 
 
+def _grouped(q, k):
+    """q [B, Hq, D] as K4's [B, Hkv, G, D] against k's Hkv heads.  The
+    heads are whatever the caller holds: a tensor-parallel rank's batch
+    cache has its own KV heads, and its query heads are whole groups of
+    them or, at tp > Hkv, the part of one group that reads its one KV head
+    (G = Hq / Hkv either way); query heads that do not split evenly over
+    the KV heads raise."""
+    b, hq, d = q.shape
+    hkv = k.shape[1]
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads do not split over {hkv} KV heads")
+    return q.reshape(b, hkv, hq // hkv, d).contiguous()
+
+
 def decode_attention(q, k, v, lengths, *, scale: float | None = None,
                      window: int | None = None,
                      use_kernel: bool | None = None) -> torch.Tensor:
@@ -24,11 +38,9 @@ def decode_attention(q, k, v, lengths, *, scale: float | None = None,
     if not _use_kernel(use_kernel, q):
         return _ref.decode_attention(q, k, v, lengths, scale=scale,
                                      window=window)
-    b, hq, d = q.shape
-    hkv = k.shape[1]
-    out, _, _ = _k.flash_decode(q.reshape(b, hkv, hq // hkv, d).contiguous(),
-                                k, v, lengths, scale=scale, window=window)
-    return out.reshape(b, hq, d)
+    out, _, _ = _k.flash_decode(_grouped(q, k), k, v, lengths, scale=scale,
+                                window=window)
+    return out.reshape(q.shape)
 
 
 def decode_attention_partial(q, k, v, lengths, *, scale: float | None = None,
@@ -38,7 +50,6 @@ def decode_attention_partial(q, k, v, lengths, *, scale: float | None = None,
     (out normalised locally [B, Hq, D], m [B, Hq], l [B, Hq]).  The plain
     branch is K4's plain version: a length-0 row gives (0, -1e30, 0)."""
     b, hq, d = q.shape
-    hkv = k.shape[1]
     if not _use_kernel(use_kernel, q):
         pos = torch.arange(k.shape[2], device=q.device)[None, :]
         valid = pos < lengths[:, None]
@@ -47,8 +58,8 @@ def decode_attention_partial(q, k, v, lengths, *, scale: float | None = None,
         o, m, l = _ref.decode_attention_partial(q, k, v, valid, scale=scale)
         ln = torch.where(l == 0.0, 1.0, l)
         return (o / ln[..., None]).to(q.dtype), m, l
-    out, m, l = _k.flash_decode(q.reshape(b, hkv, hq // hkv, d).contiguous(),
-                                k, v, lengths, scale=scale, window=window)
+    out, m, l = _k.flash_decode(_grouped(q, k), k, v, lengths, scale=scale,
+                                window=window)
     return out.reshape(b, hq, d), m.reshape(b, hq), l.reshape(b, hq)
 
 

@@ -212,7 +212,9 @@ def paged_qkv_write(q, k, v, k_pages, v_pages, block_table, lengths,
                     frame_ro, write_mask, meta, *, q_norm=None, k_norm=None,
                     eps=1e-6, rope_theta=None):
     """K1 on the decode path, one launch.  q: [B, Hq, D], k/v: [B, Hkv, D],
-    the raw projections (after any bias) in the compute dtype; q_norm /
+    the raw projections (after any bias) in the compute dtype, one block a
+    head: Hq is the caller's query heads (a tensor-parallel rank's own)
+    against every KV head its page replica takes; q_norm /
     k_norm: [D] RMS-norm weights in that dtype, or None (no ``qk_norm``);
     rope_theta: the rotary base, or None (no rotary); the rest as
     :func:`paged_kv_write`.  Norms and rotates q and k at position
@@ -258,7 +260,9 @@ def qk_rotate(q, k, lengths, *, q_norm=None, k_norm=None, eps=1e-6,
 
 def paged_gather_attend(q, k_pages, v_pages, block_table, lengths, meta, *,
                         scale=None, window=None):
-    """K2.  q: [B, Hkv_loc, G, D] (whole KV-head groups); k/v_pages:
+    """K2.  q: [B, Hkv_loc, G, D], the query heads of KV heads
+    ``kv_start ..`` (whole KV-head groups, or with Hkv_loc 1 a tensor-parallel
+    shard's G query heads inside one group); k/v_pages:
     [np_loc, slots, Hkv, D]; block_table: int32 [B, max_lpages] GLOBAL frame
     ids; meta: (sid, n_shards, kv_start) with kv_start the first KV head of
     q.  Returns UNNORMALISED (acc [B, Hkv_loc, G, D], m [B, Hkv_loc, G, 1],

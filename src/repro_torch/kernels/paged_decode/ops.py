@@ -28,23 +28,38 @@ from repro_torch.kernels.paged_decode import kernel as _k
 from repro_torch.kernels.paged_decode import ref as _ref
 
 
+def kernel_group(hl: int, group: int) -> int | None:
+    """The head group K1/K2 walk for ``hl`` local query heads of KV-head
+    groups of ``group``: ``group`` where the shard holds whole groups, ``hl``
+    where it lies inside one group (a tensor-parallel shard at tp > Hkv:
+    ``[B, 1, hl, D]`` against the one KV head its heads read), None where
+    it straddles two groups without holding whole ones."""
+    if hl % group == 0:
+        return group
+    if group % hl == 0:
+        return hl
+    return None
+
+
 def resolve_impl(paged_kernel: str, hl: int, group: int,
                  device: torch.device) -> str:
     """Map the ModelConfig ``paged_kernel`` flag + the tensors' device to an
     impl: ``auto`` is ``fused`` on CUDA and ``composed`` on the CPU;
     ``fused`` on the CPU raises; ``composed`` is honoured everywhere.  The
-    kernels walk whole KV-head groups, so ``hl`` local query heads that
-    split a group raise (a misconfigured tensor-parallel split), on the CPU
-    too, where ``auto`` stands for the card's path; only ``composed``, and
-    ``auto`` on ``meta`` tensors (the dry-run counts the plain path), take
-    such a shard, as the reference's composed path does."""
+    kernels take whole KV-head groups and a shard inside one group
+    (:func:`kernel_group`, with the shard's first head a multiple of
+    ``hl``, as a tensor-parallel split gives it); ``hl`` local query heads
+    that straddle two groups raise (on the CPU too, where ``auto`` stands
+    for the card's path); only ``composed``, and ``auto`` on ``meta``
+    tensors (the dry-run counts the plain path), take such a shard, as the
+    reference's composed path does."""
     device = torch.device(device)
     if paged_kernel == "composed" or (paged_kernel == "auto"
                                       and device.type == "meta"):
         return "composed"
-    if hl % group:
-        raise ValueError(f"{hl} local query heads do not split into whole "
-                         f"KV-head groups of {group}")
+    if kernel_group(hl, group) is None:
+        raise ValueError(f"{hl} local query heads straddle KV-head groups of "
+                         f"{group}: neither whole groups nor inside one")
     if paged_kernel == "fused":
         if device.type != "cuda":
             raise RuntimeError("paged_kernel='fused' needs CUDA tensors: the "
@@ -78,7 +93,8 @@ def paged_decode_shard(q, k_new, v_new, k_pages, v_pages, lengths, bt, fl,
                        eps=1e-6, rope_theta=None):
     """One shard of the paged decode step.
 
-    q: [B, Hl, hd] local query heads (whole KV-head groups);
+    q: [B, Hl, hd] local query heads from ``head_start`` (whole KV-head
+    groups, or inside one group: :func:`kernel_group`);
     k_new/v_new: [B, Hkv, hd]; k/v_pages: [np_loc, slots, Hkv, hd] local,
     updated IN PLACE; bt/fl/fr: replicated VM tables (ignored when
     ``use_vm`` is False); wm: [B] write mask.  q and k_new are the raw
@@ -103,10 +119,14 @@ def paged_decode_shard(q, k_new, v_new, k_pages, v_pages, lengths, bt, fl,
         bt_use, fr_use = bt, fr
     else:
         bt_use, fr_use = _identity_tables(b, max_pages, q.device)
+    g = kernel_group(hl, group)
+    if g is None or head_start % g:
+        raise ValueError(f"heads [{head_start}, {head_start + hl}) straddle "
+                         f"KV-head groups of {group}")
     meta = (sid, n_shards, head_start // group)
     q = _k.paged_qkv_write(q, k_new, v_new, k_pages, v_pages, bt_use, lengths,
                            fr_use, wm, meta, **epilogue)
-    qg = q.reshape(b, hl // group, group, hd)
+    qg = q.reshape(b, hl // g, g, hd)
     acc, m, l = _k.paged_gather_attend(qg, k_pages, v_pages, bt_use, lengths,
                                        meta, window=window)
     return (acc.reshape(b, hl, hd), m.reshape(b, hl), l.reshape(b, hl),

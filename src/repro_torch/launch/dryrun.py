@@ -18,6 +18,11 @@ through the port's own paths on ``meta`` tensors, shapes without storage:
                rank body of ``parallel/paged_attention.py`` over this
                rank's block of pages.
 
+A serve step runs on the rank's shards of the weights (``Model.shard``,
+the tensor-parallel split form: its heads, MLP columns, experts and vocab
+block over "model") for every arch that has one; the SSM mixers and
+enc-dec, which have none yet, run on whole weights.
+
 The rank's rows are the global batch split over the data axes, or the
 whole batch where it does not split (the reference's replicated batch).
 The step runs under :class:`repro_torch.launch.hlo_analysis.CostCounter`.
@@ -69,7 +74,7 @@ from repro_torch.launch import hlo_analysis as H
 from repro_torch.launch.mesh import (dp_axes, end_fake_group,
                                      make_production_mesh, mesh_shape,
                                      start_fake_group)
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, has_split_form
 from repro_torch.optim import adamw
 from repro_torch.parallel import mesh_ctx
 from repro_torch.train import trainer as trainer_mod
@@ -139,14 +144,21 @@ def build_step(cfg, shape: ShapeSpec, specs: dict, mesh, dp: tuple,
     """One rank's step of ``cfg`` at ``shape`` on ``mesh``, on meta
     tensors: ``(run, resident, extra)`` -- ``run()`` takes the step,
     ``resident`` holds what the rank keeps across steps (weights, state,
-    cache, batch), ``extra`` the record's fields.  Installs the mesh
-    context; the caller clears it."""
+    cache, batch), ``extra`` the record's fields.  A serve step (prefill,
+    decode) runs on the rank's shards of the weights where the arch has a
+    split form (``Model.shard``: its heads, MLP columns, experts, vocab
+    block over "model"); on a mesh whose "model" axis has one rank
+    nothing splits.  Installs the mesh context; the caller clears it."""
     model = Model(cfg, device="meta")
     mesh_ctx.set_context(mesh, batch_axes=dp, tp_axis="model", kv_axes=dp)
     n_dp = _dp_size(mesh, dp)
     rows = _rows(shape.global_batch, n_dp)
     batch = {k: _meta(v, rows) for k, v in specs.items()}
     extra = {"params": model.param_count(), "rows_per_rank": rows}
+    if shape.kind != "train" and has_split_form(cfg) \
+            and mesh_shape(mesh)["model"] > 1:
+        model = model.shard()
+    extra["split_form"] = model.tp_shard is not None
     if shape.kind == "train":
         m = microbatches or _auto_microbatches(
             cfg, shape.global_batch, shape.seq_len, n_dp)
@@ -218,8 +230,9 @@ def measure(cfg, shape: ShapeSpec, specs_for, mesh, dp: tuple) -> dict:
     probes at 1 and 2 depth units (train steps at one microbatch, as the
     reference's), extrapolated; peak memory at full depth or extrapolated
     from probes at the cell's microbatching; ``replicated_over_tp`` from the
-    depth-1 probe on the mesh's tp-1 twin.  ``specs_for(cfg)`` gives a
-    config's input specs."""
+    depth-1 probe on the mesh's tp-1 twin (the step on whole weights; its
+    flops and peak bytes are kept as ``tp1_twin``).  ``specs_for(cfg)``
+    gives a config's input specs."""
     train = shape.kind == "train"
     n_units = _probe_units(cfg)
     probes = {}
@@ -250,13 +263,14 @@ def measure(cfg, shape: ShapeSpec, specs_for, mesh, dp: tuple) -> dict:
                                          n_units),
                   "how": "extrapolated", "full_depth_est_ops": est_ops}
     tp = mesh_shape(mesh)["model"]
-    replicated = 0.0
+    replicated, twin_rec = 0.0, None
     if tp > 1:
         pcfg = _probe_cfg(cfg, 1)
         twin = count_step(pcfg, shape, specs_for(pcfg), _tp1_mesh(mesh, dp),
                           dp, microbatches=1 if train else None)
         r = probes[1]["flops"] / twin["flops"] if twin["flops"] else 1.0
         replicated = (r - 1.0 / tp) / (1.0 - 1.0 / tp)
+        twin_rec = {k: twin[k] for k in ("flops", "peak_bytes")}
     n_dev = math.prod(mesh_shape(mesh).values())
     roof = H.Roofline(flops=_lin(probes[1]["flops"], probes[2]["flops"],
                                  n_units),
@@ -280,6 +294,7 @@ def measure(cfg, shape: ShapeSpec, specs_for, mesh, dp: tuple) -> dict:
         "kind": shape.kind, "n_devices": n_dev, "microbatches": m,
         "params": probes[1]["params"],
         "rows_per_rank": probes[1]["rows_per_rank"],
+        "split_form": probes[1]["split_form"],
         "probes": {k: {key: p[key] for key in (
             "flops", "hbm_bytes", "coll_bytes", "coll_by_op",
             "coll_count_by_op", "peak_bytes", "ops", "seconds")}
@@ -295,6 +310,7 @@ def measure(cfg, shape: ShapeSpec, specs_for, mesh, dp: tuple) -> dict:
         "memory": memory,
         "fits_80gb": memory["peak_bytes"] <= H.DEVICE_BYTES,
         "replicated_over_tp": replicated,
+        "tp1_twin": twin_rec,
         "model_flops_per_device": mf,
         "useful_flops_ratio": mf / roof.flops if roof.flops else None,
     }

@@ -16,6 +16,14 @@ on the card, ``paged_kernel="auto"``; 16-slot pages).
 popularity, bimodal lengths) against the engine's decode-step clock, so
 requests genuinely queue; the JSON report then carries the per-request SLO
 telemetry (TTFT, inter-token latency and queue wait, in decode steps).
+``--tp N`` under ``torchrun`` serves the tensor-parallel split form over
+a ``(world / N, N)`` ("data", "model") mesh of the ranks
+(``Model.shard``: each rank holds and computes its own heads, MLP columns,
+experts and vocab block; every rank samples the same tokens, rank 0
+prints the report):
+
+  PYTHONPATH=src torchrun --nproc_per_node 2 -m repro_torch.launch.serve \
+      --smoke --device cpu --pooled --tp 2
 """
 from __future__ import annotations
 
@@ -26,9 +34,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_smoke_config, list_archs
+from repro_torch.launch.mesh import mesh_from_env
 from repro_torch.models.model import Model
+from repro_torch.parallel import mesh_ctx
 from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
 from repro_torch.serve.scheduler import Scheduler, SchedulerConfig
 from repro_torch.serve.tracegen import TraceConfig, generate, replay
@@ -99,6 +110,9 @@ def main(argv=None) -> None:
     ap.add_argument("--zipf-alpha", type=float, default=1.2,
                     help="prompt-popularity skew (larger = hotter head)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="under torchrun: serve the split form over "
+                         "tensor-parallel groups of this many ranks")
     args = ap.parse_args(argv)
     # f32 matmuls in full f32, as the reference computes them
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -113,8 +127,25 @@ def main(argv=None) -> None:
         # the batch layout's kernels: K3 for full-sequence attention, K4
         # for its decode (the paged layouts pick K1/K2 by paged_kernel)
         cfg = dataclasses.replace(cfg, attn_impl="pallas")
-    model = Model(cfg, device=args.device, seed=args.seed)
+    dev, mesh, started = mesh_from_env(args.device, args.tp)
+    rank = dist.get_rank() if mesh is not None else 0
+    model = Model(cfg, device=dev, seed=args.seed)
+    if mesh is not None:
+        mesh_ctx.set_context(mesh)
+        model = model.shard()
+    try:
+        report = serve(args, cfg, model)
+    finally:
+        mesh_ctx.clear_context()
+        if started:
+            dist.destroy_process_group()
+    if rank == 0:
+        print(json.dumps(report, indent=1))
 
+
+def serve(args, cfg, model) -> dict:
+    """``args``'s requests or trace through ``model``'s engine; the
+    report."""
     engine = ServeEngine(model, EngineConfig(
         slots=args.slots, max_len=args.max_len,
         preempt_mode=args.preempt_mode, retain_frames=args.retain_frames,
@@ -146,12 +177,10 @@ def main(argv=None) -> None:
     dt = time.monotonic() - t0
     stats = engine.shutdown()
     total_new = sum(len(r.output) for r in done)
-    print(json.dumps({
-        "completed": len(done), "new_tokens": total_new,
-        "tokens_per_s": round(total_new / dt, 1),
-        "outputs": {r.uid: r.output[:8] for r in done},
-        "telemetry": stats["telemetry"],
-    }, indent=1))
+    return {"completed": len(done), "new_tokens": total_new,
+            "tokens_per_s": round(total_new / dt, 1),
+            "outputs": {r.uid: r.output[:8] for r in done},
+            "telemetry": stats["telemetry"]}
 
 
 if __name__ == "__main__":

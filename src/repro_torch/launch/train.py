@@ -24,44 +24,18 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.data import DataConfig, SyntheticLM
-from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import (init_process_group, make_host_mesh,
-                                     mesh_shape)
+from repro_torch.launch.mesh import mesh_from_env, mesh_shape
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig, schedules
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.fault_tolerance import StragglerDetector
 from repro_torch.train.trainer import TrainConfig, Trainer
-
-
-def mesh_from_env(device=None, tp: int = 1):
-    """``(device, mesh, started)``.  Under ``torchrun`` (``RANK`` and
-    ``WORLD_SIZE`` set) the default group is started for ``device`` unless
-    it runs already (``started`` says whether this call started it), each
-    rank on its own card (``LOCAL_RANK``), and the mesh is
-    :func:`make_host_mesh`'s ``(world / tp, tp)``.  Without that
-    environment: one device, no mesh, and ``tp`` must be 1."""
-    dev = resolve_device(device)
-    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
-        if tp != 1:
-            raise ValueError(f"--tp {tp} needs ranks: start the driver under "
-                             "torchrun")
-        return dev, None, False
-    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
-    started = not dist.is_initialized()
-    if started:
-        init_process_group(dev, rank=rank, world_size=world,
-                           init_method="env://")
-    return dev, make_host_mesh(tp=tp, device=dev), started
 
 
 def main(argv=None) -> dict:

@@ -82,7 +82,7 @@ def encode(cfg: ModelConfig, params, embeds: torch.Tensor,
         a = L.rms_norm(h, p["ln1"]["w"], cfg.rms_eps)
         h = h + L.attention_block(cfg, p["attn"], a, positions, causal=False)
         m = L.rms_norm(h, p["ln2"]["w"], cfg.rms_eps)
-        return h + L.mlp_block(p["mlp"], m)
+        return h + L.mlp_block(p["mlp"], m, cfg.d_ff)
 
     step = _remat(cfg, step)
     for p in _layers(cfg, params, layers, "enc"):
@@ -105,7 +105,7 @@ def decode_train(cfg: ModelConfig, params, tokens: torch.Tensor,
         kv = L.encode_kv(cfg, p["cross_attn"], enc_out)
         h = h + L.cross_attention_block(cfg, p["cross_attn"], c, kv)
         m = L.rms_norm(h, p["ln2"]["w"], cfg.rms_eps)
-        return h + L.mlp_block(p["mlp"], m)
+        return h + L.mlp_block(p["mlp"], m, cfg.d_ff)
 
     step = _remat(cfg, step)
     for p in _layers(cfg, params, layers, "dec"):
@@ -173,6 +173,6 @@ def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache: dict,
         x = x + L.cross_attention_block(cfg, p["cross_attn"], c,
                                         (cache["xk"][j], cache["xv"][j]))
         m = L.rms_norm(x, p["ln2"]["w"], cfg.rms_eps)
-        x = x + L.mlp_block(p["mlp"], m)
+        x = x + L.mlp_block(p["mlp"], m, cfg.d_ff)
     x = L.rms_norm(x, params["ln_f"]["w"], cfg.rms_eps)
     return L.masked_logits(cfg, params["embed"], x[:, -1]), cache

@@ -9,6 +9,13 @@ logical axes, initializer), from which the model draws its weights with the
 reference's distributions and :func:`build_axes` / :func:`build_shapes`
 derive the sharding rules' inputs.
 
+A tensor-parallel rank's split form holds its own shards of these tables
+(:func:`repro_torch.parallel.sharding.tp_shard_params`): every block reads
+its head, column and vocab counts from the weights it holds, and where
+they are a shard it sums its row-parallel output (``wo``, ``w_down``), its
+embedding, or gathers its logits over the mesh context's tp group.  Whole
+weights compute as on one device, under a context or not.
+
 Logical axis names (the reference's):
   "layers"   -- stacked layer-period dimension
   "embed"    -- d_model
@@ -28,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import mesh_ctx
 
 NEG_INF = -1e30
 
@@ -146,6 +154,36 @@ def attention_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
+def local_heads(cfg: ModelConfig, p) -> tuple[int, int]:
+    """(query heads, KV heads) the attention weights ``p`` hold: the
+    config's, or a tensor-parallel rank's whole-head shard of them."""
+    return p["wq"].shape[-1] // cfg.hd, p["wk"].shape[-1] // cfg.hd
+
+
+def row_parallel_sum(parts) -> torch.Tensor:
+    """The sum of ``parts``, triples ``(y, held, whole)`` of a product ``y``
+    through weights that hold ``held`` of a dim's ``whole`` rows: where
+    ``held < whole`` they are a tensor-parallel rank's shard (the split
+    form) and ``y`` is its partial sum.  The partials are added and summed
+    over the tp group in one call, and the whole products added after:
+    the one place a block decides from its weights whether to sum."""
+    out = None
+    split = [y for y, held, whole in parts if held < whole]
+    if split:
+        out = mesh_ctx.tp_sum(sum(split[1:], split[0]))
+    for y, held, whole in parts:
+        if held >= whole:
+            out = y if out is None else out + y
+    return out
+
+
+def attention_out(cfg: ModelConfig, p, out: torch.Tensor) -> torch.Tensor:
+    """The attention's heads [..., Hl * hd] through ``wo``
+    (:func:`row_parallel_sum`: a rank's rows of ``wo`` give a partial)."""
+    wo = p["wo"]
+    return row_parallel_sum([(out @ wo, wo.shape[0], cfg.n_heads * cfg.hd)])
+
+
 def qkv_projections(cfg: ModelConfig, p, x: torch.Tensor):
     """The projections of :func:`project_qkv`: x [B, S, d] -> q
     [B, S, H * hd], k/v [B, S, Hkv * hd], bias added."""
@@ -183,13 +221,15 @@ def qk_epilogue_args(cfg: ModelConfig, p, rotary: bool = True) -> dict:
 
 def project_qkv(cfg: ModelConfig, p, x: torch.Tensor,
                 positions: torch.Tensor, rotary: bool = True):
-    """x: [B, S, d] -> q [B, H, S, hd], k/v [B, Hkv, S, hd]."""
+    """x: [B, S, d] -> q [B, H, S, hd], k/v [B, Hkv, S, hd] (the heads ``p``
+    holds)."""
     b, s, _ = x.shape
     hd = cfg.hd
+    h, hkv = local_heads(cfg, p)
     q, k, v = qkv_projections(cfg, p, x)
-    q = q.reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    q = q.reshape(b, s, h, hd).transpose(1, 2)
+    k = k.reshape(b, s, hkv, hd).transpose(1, 2)
+    v = v.reshape(b, s, hkv, hd).transpose(1, 2)
     q, k = qk_epilogue(q, k, positions, **qk_epilogue_args(cfg, p, rotary))
     return q, k, v
 
@@ -303,8 +343,7 @@ def attention_block(cfg: ModelConfig, p, x: torch.Tensor,
     b, s, _ = x.shape
     q, k, v = project_qkv(cfg, p, x, positions)
     out = full_attention(cfg, q, k, v, causal=causal, window=cfg.window)
-    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
-    return out @ p["wo"]
+    return attention_out(cfg, p, out.transpose(1, 2).reshape(b, s, -1))
 
 
 def cross_attention_block(cfg: ModelConfig, p, x: torch.Tensor,
@@ -342,8 +381,9 @@ def decode_attention_block(cfg: ModelConfig, p, x: torch.Tensor,
                            lengths: torch.Tensor, write_mask=None):
     """One-token decode with a batch-layout cache, updated IN PLACE.
 
-    x: [B, 1, d]; k_cache/v_cache: [B, Hkv, S_max, hd]; lengths: [B] count
-    INCLUDING the new token.  Returns (out [B, 1, d], k_cache, v_cache).
+    x: [B, 1, d]; k_cache/v_cache: [B, Hkv, S_max, hd] (the KV heads ``p``
+    holds); lengths: [B] count INCLUDING the new token.  Returns (out
+    [B, 1, d], k_cache, v_cache).
 
     As in the reference, the new K/V row is written at ``lengths - 1``
     before attending, and a length-0 row (index -1) writes nothing: the
@@ -355,21 +395,20 @@ def decode_attention_block(cfg: ModelConfig, p, x: torch.Tensor,
     With ``attn_impl="pallas"`` the q/k norm and rotary go through
     ``ops.qk_rotate``: on CUDA tensors one K1 launch with its page write
     off."""
-    b = x.shape[0]
+    b, hd = x.shape[0], cfg.hd
+    h, hkv = local_heads(cfg, p)
     if cfg.attn_impl == "pallas":
         from repro_torch.kernels.paged_decode import ops as pd_ops
-        hd = cfg.hd
         q, k_new, v_new = qkv_projections(cfg, p, x)
-        q, k_new = pd_ops.qk_rotate(q.view(b, cfg.n_heads, hd),
-                                    k_new.view(b, cfg.n_kv_heads, hd),
+        q, k_new = pd_ops.qk_rotate(q.view(b, h, hd), k_new.view(b, hkv, hd),
                                     lengths, **qk_epilogue_args(cfg, p))
         q, k_new = q[:, :, None], k_new[:, :, None]
-        v_new = v_new.view(b, cfg.n_kv_heads, 1, hd)
+        v_new = v_new.view(b, hkv, 1, hd)
     else:
         q, k_new, v_new = project_qkv(cfg, p, x, (lengths - 1)[:, None])
     s_max = k_cache.shape[2]
     ix = (lengths.long() - 1).clamp(0, s_max - 1)
-    ix = ix.view(b, 1, 1, 1).expand(b, cfg.n_kv_heads, 1, cfg.hd)
+    ix = ix.view(b, 1, 1, 1).expand(b, hkv, 1, hd)
     hit = ((lengths >= 1) & (lengths <= s_max)).view(b, 1, 1, 1)
     saved = []
     for cache, new in ((k_cache, k_new), (v_cache, v_new)):
@@ -389,8 +428,7 @@ def decode_attention_block(cfg: ModelConfig, p, x: torch.Tensor,
         keep = write_mask.view(b, 1, 1, 1)
         for cache, old, row in saved:
             cache.scatter_(2, ix, torch.where(keep, row, old))
-    out = out.reshape(b, 1, cfg.n_heads * cfg.hd)
-    return out @ p["wo"], k_cache, v_cache
+    return attention_out(cfg, p, out.reshape(b, 1, h * hd)), k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------
@@ -406,9 +444,16 @@ def mlp_defs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
     }
 
 
-def mlp_block(p, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+def swiglu(p, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU over the columns ``p`` holds: the block's output, or a
+    tensor-parallel rank's partial sum of it."""
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+def mlp_block(p, x: torch.Tensor, d_ff: int) -> torch.Tensor:
+    """SwiGLU of hidden width ``d_ff`` (:func:`row_parallel_sum`: a rank's
+    columns give a partial)."""
+    return row_parallel_sum([(swiglu(p, x), p["w_down"].shape[0], d_ff)])
 
 
 # ---------------------------------------------------------------------------
@@ -423,11 +468,26 @@ def embedding_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
+def vocab_split(cfg: ModelConfig, p) -> bool:
+    """Whether ``p`` holds a tensor-parallel rank's block of the vocab."""
+    return p["tok"].shape[0] < cfg.vocab_padded
+
+
 def embed_tokens(cfg: ModelConfig, p, ids: torch.Tensor) -> torch.Tensor:
-    return p["tok"][ids]
+    """The rows of ``ids``.  Over a rank's vocab block, ids outside it give
+    zeros and the sum over the tp group gives every row."""
+    tok = p["tok"]
+    if not vocab_split(cfg, p):
+        return tok[ids]
+    n = tok.shape[0]
+    local = ids - mesh_ctx.tp_index() * n
+    mine = (local >= 0) & (local < n)
+    x = torch.where(mine[..., None], tok[local.clamp(0, n - 1)], 0)
+    return mesh_ctx.tp_sum(x)
 
 
 def unembed(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """The logits of the vocab ``p`` holds (a rank's block of columns)."""
     if cfg.tie_embeddings:
         return x @ p["tok"].T
     return x @ p["head"]
@@ -435,8 +495,13 @@ def unembed(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
 
 def masked_logits(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     """Unembed ``x`` to f32 logits with the padded vocab columns at
-    ``NEG_INF``."""
+    ``NEG_INF``; a rank's vocab block is gathered over the tp group into
+    every column first, so every rank holds (and samples from) the same
+    logits."""
     logits = unembed(cfg, p, x).float()
+    if vocab_split(cfg, p):
+        parts = mesh_ctx.tp_gather(logits)          # [tp, ..., V / tp]
+        logits = parts.movedim(0, -2).reshape(*logits.shape[:-1], -1)
     if cfg.vocab_padded != cfg.vocab_size:
         pad = torch.arange(cfg.vocab_padded, device=logits.device) \
             >= cfg.vocab_size

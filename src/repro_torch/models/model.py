@@ -12,6 +12,13 @@ prefill and decode run without gradients.  Training turns them on
 :class:`repro_torch.train.trainer.Trainer` does) and takes :meth:`loss`,
 which indexes the stacked weights afresh with grad on; an optimizer step
 writes the parameters in place, so the cached serving views stay valid.
+
+:meth:`Model.shard` gives the tensor-parallel split form: a model over one
+rank's shards of the weights under the installed mesh context (its heads,
+MLP columns, experts and vocab block; ``tp_only``), which serves through
+the same entry points with one collective after each row-parallel
+product.  A model of whole weights under a context computes on them whole,
+as before.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ from repro_torch.models import encdec as E
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import mesh_ctx
+from repro_torch.parallel.sharding import tp_shard_params
 
 
 def defs_for(cfg: ModelConfig) -> dict:
@@ -47,6 +56,24 @@ def _build(defs: dict, gen: torch.Generator, dtype, device) -> nn.Module:
         for k in sorted(defs)})
 
 
+def has_split_form(cfg: ModelConfig) -> bool:
+    """Whether :meth:`Model.shard` splits ``cfg``: the attention decoders
+    (dense, MoE, the frontend stubs); not the SSM mixers or enc-dec."""
+    return not T.is_encdec(cfg) and all(cfg.layer_kind(i) == "attn"
+                                        for i in range(cfg.layer_period))
+
+
+def _rebuild(module, tree: dict) -> nn.Module:
+    """``module``'s structure (ModuleDicts of ParameterDicts) over the
+    tensors of ``tree``, a param tree of the same keys."""
+    if isinstance(module, nn.ModuleDict):
+        return nn.ModuleDict({k: _rebuild(module[k], tree[k]) for k in module})
+    return nn.ParameterDict({
+        k: (_rebuild(v, tree[k]) if isinstance(v, nn.Module)
+            else nn.Parameter(tree[k], requires_grad=False))
+        for k, v in module.items()})
+
+
 def param_tree(module) -> dict:
     """The parameters of a built table as a plain nested dict (the same
     tensors), keyed as the reference's pytree."""
@@ -67,6 +94,8 @@ class Model(nn.Module):
         self.params = _build(defs_for(cfg), self._generator(seed),
                              torch_dtype(cfg.param_dtype), self.device)
         self._periods = None
+        #: (tp, index) of the split form's shards; None: whole weights
+        self.tp_shard = None
 
     def _generator(self, seed: int) -> torch.Generator | None:
         if self.device.type == "meta":      # nothing to draw (dry runs)
@@ -115,11 +144,44 @@ class Model(nn.Module):
                 or cfg.param_dtype != self.cfg.param_dtype):
             raise ValueError(
                 f"{cfg.name}: weights differ from {self.cfg.name}'s")
+        return self._over(cfg, self.params, self._periods, self.tp_shard)
+
+    def _over(self, cfg, params, periods, tp_shard) -> "Model":
+        """A model on this one's device over ``params``, not drawn."""
         other = Model.__new__(Model)
         nn.Module.__init__(other)
         other.cfg, other.device = cfg, self.device
-        other.params, other._periods = self.params, self._periods
+        other.params, other._periods = params, periods
+        other.tp_shard = tp_shard
         return other
+
+    def shard(self) -> "Model":
+        """The tensor-parallel split form: a model over this rank's shards
+        of these weights, split over the installed mesh context's tp axis
+        as ``tp_only`` splits them
+        (:func:`repro_torch.parallel.sharding.tp_shard_params`: whole
+        heads, MLP columns, experts or their columns, the vocab block; what
+        tp does not divide stays whole).  It serves through the same entry
+        points and gives every rank the same logits.  Decoders without
+        Mamba2 layers only: the SSM mixers and enc-dec have no split form
+        yet (NotImplementedError)."""
+        ctx = mesh_ctx.get_context()
+        if ctx is None:
+            raise RuntimeError("Model.shard splits over the installed mesh "
+                               "context's tp axis: set one first")
+        if self.tp_shard is not None:
+            raise ValueError(f"already the split form {self.tp_shard}")
+        cfg = self.cfg
+        if not has_split_form(cfg):
+            raise NotImplementedError(
+                f"{cfg.name}: the tensor-parallel split form covers the "
+                "attention decoders (dense and MoE); not the SSM mixers or "
+                "enc-dec")
+        with torch.no_grad():
+            tree = tp_shard_params(cfg, self.param_tree(), self.axes(),
+                                   ctx.tp, ctx.tp_index)
+        return self._over(cfg, _rebuild(self.params, tree), None,
+                          (ctx.tp, ctx.tp_index))
 
     def periods(self):
         """Views of the stacked weights, made once: per period for a
@@ -148,7 +210,8 @@ class Model(nn.Module):
         if T.is_encdec(self.cfg):
             return E.init_cache(self.cfg, batch_size, max_len,
                                 src_len or max_len, self.device, dtype)
-        return T.init_cache(self.cfg, batch_size, max_len, self.device, dtype)
+        return T.init_cache(self.cfg, batch_size, max_len, self.device, dtype,
+                            n_kv_heads=T.local_kv_heads(self.cfg, self.params))
 
     @torch.no_grad()
     def forward(self, batch: dict) -> torch.Tensor:

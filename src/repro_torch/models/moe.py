@@ -19,6 +19,14 @@ the port selects by a stable descending sort, which does.
 
 Shared experts (qwen2-moe) always run, dense, behind a sigmoid gate.  The
 router's softmax and top-k run in f32, as in the reference.
+
+A tensor-parallel rank's split form (``tp_only``) keeps the router whole,
+so every rank routes, fills capacity and breaks ties exactly as one device
+does; it holds its block of the experts where tp divides them, else its
+``mlp`` columns of every expert, and its columns of the shared expert.  It
+computes the buffers of the experts it holds (or its columns of all of
+them), combines its partial output and sums it over the tp group in one
+call; a piece the rank holds whole is added after that sum.
 """
 from __future__ import annotations
 
@@ -28,7 +36,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import ParamDef, mlp_block, mlp_defs
+from repro_torch.models.layers import (ParamDef, mlp_defs, row_parallel_sum,
+                                       swiglu)
+from repro_torch.parallel import mesh_ctx
 
 
 def moe_defs(cfg: ModelConfig) -> dict:
@@ -69,29 +79,51 @@ def _route(cfg: ModelConfig, p, xt: torch.Tensor):
     return probs, weights / weights.sum(-1, keepdim=True), idx
 
 
-def _experts(p, buf: torch.Tensor) -> torch.Tensor:
-    """Every expert's SwiGLU over its buffer: [E, C, d] -> [E, C, d]."""
+def _first_expert(cfg: ModelConfig, p) -> int:
+    """The first expert the tables ``p`` hold: 0, or a tensor-parallel
+    rank's block of the experts."""
+    e_loc = p["w_gate"].shape[0]
+    return mesh_ctx.tp_index() * e_loc if e_loc < cfg.n_experts else 0
+
+
+def _experts(cfg: ModelConfig, p, buf: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU of each expert ``p`` holds over its buffer: [E, C, d] ->
+    [E_loc, C, d]."""
+    if buf.shape[0] != p["w_gate"].shape[0]:
+        e_lo = _first_expert(cfg, p)
+        buf = buf[e_lo:e_lo + p["w_gate"].shape[0]]
     h = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
     return torch.bmm(h, p["w_down"])
 
 
 def _combine(cfg: ModelConfig, p, xt, out_buf, flat_e, pos, keep, weights):
     """Gather each kept (token, choice) row of ``out_buf`` (dropped pairs
-    read row 0 and are zeroed), weight, sum over the choices, add the
-    shared experts: [T, d]."""
+    and the experts ``p`` does not hold read row 0 and are zeroed), weight,
+    sum over the choices, add the shared experts: [T, d].  Where ``p``
+    holds a tensor-parallel rank's experts or columns, the partials are
+    summed over the tp group in one call (:func:`row_parallel_sum`)."""
     t, d = xt.shape
+    e_loc, de_loc = p["w_down"].shape[:2]
+    if e_loc < cfg.n_experts:
+        e_lo = _first_expert(cfg, p)
+        keep = keep & (flat_e >= e_lo) & (flat_e < e_lo + e_loc)
+        flat_e = flat_e - e_lo
     gathered = out_buf[torch.where(keep, flat_e, 0), torch.where(keep, pos, 0)]
     gathered = torch.where(keep[:, None], gathered, 0)
     y = (gathered.reshape(t, cfg.n_experts_active, d)
          * weights[..., None].to(xt.dtype)).sum(dim=1)
-    return _shared(cfg, p, xt, y)
-
-
-def _shared(cfg: ModelConfig, p, xt, y):
+    de = cfg.d_expert or cfg.d_ff
+    parts = [(y, e_loc * de_loc, cfg.n_experts * de)]
     if cfg.n_shared_experts:
-        gate = torch.sigmoid((xt @ p["shared_gate"]).float())
-        y = y + mlp_block(p["shared"], xt) * gate.to(xt.dtype)
-    return y
+        parts.append((_shared(p, xt), p["shared"]["w_down"].shape[0],
+                      cfg.n_shared_experts * de))
+    return row_parallel_sum(parts)
+
+
+def _shared(p, xt):
+    """The shared experts' gated SwiGLU over the columns ``p`` holds."""
+    gate = torch.sigmoid((xt @ p["shared_gate"]).float())
+    return swiglu(p["shared"], xt) * gate.to(xt.dtype)
 
 
 def _scatter_positions(flat_e: torch.Tensor, e: int) -> torch.Tensor:
@@ -134,7 +166,7 @@ def moe_block_scatter(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     col = torch.where(keep, pos, 0)
     buf = torch.zeros((e + 1, cap, d), dtype=x.dtype, device=x.device)
     buf[row, col] = xt.repeat_interleave(k, dim=0)
-    out_buf = _experts(p, buf[:e])
+    out_buf = _experts(cfg, p, buf[:e])
     y = _combine(cfg, p, xt, out_buf, flat_e, pos, keep, weights)
     return y.reshape(b, s, d)
 
@@ -159,7 +191,7 @@ def moe_block_sorted(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     valid = cols[None, :] < counts[:, None]
     tok_choice = order[gidx.clamp(0, t * k - 1)]               # [E, C]
     buf = torch.where(valid[..., None], xt[tok_choice // k], 0)
-    out_buf = _experts(p, buf)
+    out_buf = _experts(cfg, p, buf)
     y = _combine(cfg, p, xt, out_buf, flat_e, pos, keep, weights)
     return y.reshape(b, s, d)
 
@@ -177,4 +209,6 @@ def moe_block_dense_oracle(cfg: ModelConfig, p, x: torch.Tensor,
     h = F.silu(h) * torch.einsum("td,edf->tef", xt, p["w_up"])
     outs = torch.einsum("tef,efd->ted", h, p["w_down"])
     y = torch.einsum("ted,te->td", outs, gates.to(x.dtype))
-    return _shared(cfg, p, xt, y).reshape(b, s, d)
+    if cfg.n_shared_experts:
+        y = y + _shared(p, xt)
+    return y.reshape(b, s, d)

@@ -32,7 +32,12 @@ the rest (torch's selective checkpoint, the reference's
 ``unroll_layers`` and ``maybe_constrain`` are XLA compilation and sharding
 controls (optimisation barriers, unrolled scans, sharding constraints): an
 eager PyTorch loop has nothing they would change, so the port reads none
-of them.
+of them.  Where the reference lets GSPMD split heads, MLP columns,
+experts and vocab over "model", the port's tensor-parallel split form
+holds a rank's shards of the weights (:meth:`Model.shard
+<repro_torch.models.model.Model.shard>`) and every block computes on what
+it holds (:mod:`repro_torch.models.layers`); the batch cache then holds
+the rank's KV heads.
 """
 from __future__ import annotations
 
@@ -124,7 +129,7 @@ def _ffn(cfg: ModelConfig, i: int, p, x: torch.Tensor) -> torch.Tensor:
     h = L.rms_norm(x, p["ln_mlp"]["w"], cfg.rms_eps)
     if cfg.layer_has_moe(i):
         return x + M.moe_block(cfg, p["moe"], h)
-    return x + L.mlp_block(p["mlp"], h)
+    return x + L.mlp_block(p["mlp"], h, cfg.d_ff)
 
 
 def block_apply(cfg: ModelConfig, i: int, p, x: torch.Tensor,
@@ -236,10 +241,23 @@ def _kv_shards(n_pages: int) -> int:
     return n
 
 
+def local_kv_heads(cfg: ModelConfig, params) -> int:
+    """The KV heads the attention weights of ``params`` hold (stacked or a
+    period's views): ``cfg.n_kv_heads``, or a tensor-parallel rank's shard
+    of them; the config's where no block has attention."""
+    for i in range(cfg.layer_period):
+        block = params[f"b{i}"]
+        if "attn" in block:
+            return L.local_heads(cfg, block["attn"])[1]
+    return cfg.n_kv_heads
+
+
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device,
-               dtype=None) -> dict:
+               dtype=None, n_kv_heads: int | None = None) -> dict:
     """Zero cache.  Attention block positions: batch layout ``{"k", "v"}``
-    of [n_periods, B, Hkv, max_len, hd]; paged layouts ``{"k_pages",
+    of [n_periods, B, Hkv, max_len, hd] (``n_kv_heads``, a tensor-parallel
+    rank's KV heads, in place of ``cfg.n_kv_heads`` where given: the paged
+    pages hold every KV head, replicated over tp); paged layouts ``{"k_pages",
     "v_pages"}`` of [n_periods, n_pages, slots, Hkv, hd], plus the
     BlockManager translation tables ``cache["vm"]`` shared by every
     attention layer (only when there is one); "paged" starts from the
@@ -267,7 +285,8 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device,
                  cfg.n_kv_heads, cfg.hd)
     else:
         names = ("k", "v")
-        shape = (cfg.n_periods, batch_size, cfg.n_kv_heads, max_len, cfg.hd)
+        shape = (cfg.n_periods, batch_size, n_kv_heads or cfg.n_kv_heads,
+                 max_len, cfg.hd)
     cache: dict = {}
     for i in range(cfg.layer_period):
         if cfg.layer_kind(i) == "attn":
@@ -322,8 +341,8 @@ def block_prefill(cfg: ModelConfig, i: int, p, x: torch.Tensor,
     if cfg.layer_kind(i) == "attn":
         q, k, v = L.project_qkv(cfg, p["attn"], h, positions)
         out = L.full_attention(cfg, q, k, v, causal=True, window=cfg.window)
-        out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
-        x = x + out @ p["attn"]["wo"]
+        x = x + L.attention_out(cfg, p["attn"],
+                                out.transpose(1, 2).reshape(b, s, -1))
         entry["k"][:, :, :s] = k
         entry["v"][:, :, :s] = v
     else:
@@ -338,7 +357,8 @@ def prefill(cfg: ModelConfig, params, batch: dict, max_len: int,
             periods=None):
     """Run the prompt, return (last-position logits [B, vocab_padded] f32,
     cache) with the cache in the batch KV layout: per attention block
-    ``{"k", "v"}`` of [n_periods, B, Hkv, max_len, hd] in the compute dtype,
+    ``{"k", "v"}`` of [n_periods, B, Hkv, max_len, hd] (the KV heads the
+    weights hold) in the compute dtype,
     as the reference pads and casts it; per Mamba2 block ``{"conv",
     "ssd"}`` as :func:`init_cache` lays them out.  The prompt is
     ``batch["tokens"]`` or ``batch["embeds"]``."""
@@ -349,7 +369,8 @@ def prefill(cfg: ModelConfig, params, batch: dict, max_len: int,
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
     positions = _positions(x)
     cache = init_cache(dataclasses.replace(cfg, kv_layout="batch"), b,
-                       max_len, x.device, x.dtype)
+                       max_len, x.device, x.dtype,
+                       n_kv_heads=local_kv_heads(cfg, params))
     for j, pp in enumerate(_periods(cfg, params, periods)):
         for i in range(cfg.layer_period):
             entry = {name: t[j] for name, t in cache[f"b{i}"].items()}

@@ -12,7 +12,13 @@ name several mesh dims, one group per slice of the other dims, made with
 ``tp_axis``, plus its own index in each: over ``kv_axes`` row-major, as the
 reference's ``_flat_axis_index``.  The collectives the port calls go
 through :func:`all_to_all`, :func:`all_reduce` and :func:`all_gather`,
-which count their calls in :data:`CALLS`.
+which count their calls in :data:`CALLS`; :func:`tp_sum` and
+:func:`tp_gather` are the two the tensor-parallel split form
+(:meth:`repro_torch.models.model.Model.shard`) calls over the installed
+context's tp group.  gloo moves CUDA tensors only for ``all_reduce`` and
+``broadcast``: over a gloo group :func:`all_gather` stages a CUDA tensor
+through a host copy (counted the same), so two processes can share one
+card over gloo while their compute stays on it.
 """
 from __future__ import annotations
 
@@ -149,9 +155,36 @@ def all_reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
 
 
 def all_gather(x: torch.Tensor, group) -> torch.Tensor:
-    """Every group rank's ``x``, stacked in rank order: [n, *x.shape]."""
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x, group=group)
+    """Every group rank's ``x``, stacked in rank order: [n, *x.shape].  A
+    CUDA tensor over a gloo group goes through a host copy and comes back
+    to its device."""
+    staged = x.device.type == "cuda" and dist.get_backend(group) == "gloo"
+    y = x.cpu() if staged else x.contiguous()
+    parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, y, group=group)
     CALLS["all_gather"] += 1
-    return torch.stack(parts)
+    out = torch.stack(parts)
+    return out.to(x.device) if staged else out
+
+
+def _tp_context() -> MeshContext:
+    if _CTX is None:
+        raise RuntimeError("the tensor-parallel split form needs a mesh "
+                           "context (mesh_ctx.set_context)")
+    return _CTX
+
+
+def tp_index() -> int:
+    """This rank's index over the context's tp axis."""
+    return _tp_context().tp_index
+
+
+def tp_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the context's tp group (a row-parallel product's
+    partial sums), in place."""
+    return all_reduce(x.contiguous(), "sum", _tp_context().tp_group)
+
+
+def tp_gather(x: torch.Tensor) -> torch.Tensor:
+    """Every tp rank's ``x``, stacked in tp order: [tp, *x.shape]."""
+    return all_gather(x, _tp_context().tp_group)

@@ -21,7 +21,11 @@ what is control-plane:
     replica; query heads are split over ``tp_axis``; the partials are
     merged with ``all_reduce`` MAX of ``m`` and SUM of ``acc * w`` and
     ``l * w`` (one call) over the kv group, and the head blocks gathered
-    over tp;
+    over tp.  In the tensor-parallel split form
+    (:meth:`repro_torch.models.model.Model.shard`) q arrives as the rank's
+    own heads and leaves as them, for its rows of ``wo``: no head is
+    sliced or gathered, but the rank's k/v heads are gathered over tp so
+    that its replica of the pages takes every KV head's new row;
   * the host-side page movers (swap, COW) the serving engine hands the
     BlockManager as ``PageIO`` callbacks, rank-aware under a context (the
     owner reads a frame and every rank gets the payload; a rank writes
@@ -67,6 +71,13 @@ def paged_decode_attention(cfg: ModelConfig, q, k_new, v_new, k_pages,
     (the engine prefills one slot through the whole decode batch)."""
     ctx = mesh_ctx.get_context()
     b, h, hd = q.shape
+    split = h < cfg.n_heads
+    if split:
+        if ctx is None:
+            raise RuntimeError("a rank's shard of the heads needs the mesh "
+                               "context it was split over")
+        if k_new.shape[1] < cfg.n_kv_heads:
+            k_new, v_new = _every_kv_head(cfg, k_new, v_new, ctx.tp)
     n_shards = 1 if ctx is None else ctx.n_kv_shards
     max_pages = k_pages.shape[0] * n_shards // b
     group = cfg.n_heads // cfg.n_kv_heads
@@ -86,13 +97,18 @@ def paged_decode_attention(cfg: ModelConfig, q, k_new, v_new, k_pages,
         out = (acc / torch.where(l == 0.0, 1.0, l)[..., None]).to(q.dtype)
         return out, kp, vp
 
-    if h % ctx.tp:
+    if split:
+        hl = h
+    elif h % ctx.tp:
         raise ValueError(f"{h} query heads do not split over tp = {ctx.tp}")
-    hl = h // ctx.tp
+    else:
+        hl = h // ctx.tp
     head_start = ctx.tp_index * hl
     impl = pd_ops.resolve_impl(cfg.paged_kernel, hl, group, q.device)
+    if not split:
+        q = q[:, head_start:head_start + hl]
     acc, m, l, kp, vp = pd_ops.paged_decode_shard(
-        q[:, head_start:head_start + hl].contiguous(), k_new, v_new, k_pages,
+        q.contiguous(), k_new, v_new, k_pages,
         v_pages, lengths, bt, fl, fr, write_mask, sid=ctx.kv_index,
         n_shards=n_shards, head_start=head_start, group=group,
         window=cfg.window, max_pages=max_pages, use_vm=vm is not None,
@@ -106,8 +122,23 @@ def paged_decode_attention(cfg: ModelConfig, q, k_new, v_new, k_pages,
         ctx.kv_group)
     num, den = sums[..., :-1], sums[..., -1]
     out = (num / torch.where(den == 0.0, 1.0, den)[..., None]).to(q.dtype)
+    if split:
+        return out, kp, vp
     heads = mesh_ctx.all_gather(out, ctx.tp_group)      # [tp, B, hl, hd]
     return heads.transpose(0, 1).reshape(b, h, hd), kp, vp
+
+
+def _every_kv_head(cfg: ModelConfig, k_new, v_new, tp: int):
+    """Every KV head's new row from the tp ranks' shards [B, Hkv_loc, hd]
+    (one gather of k and v): the first rank of each block of ranks that
+    holds the same KV heads (``tp / Hkv`` of them where tp > Hkv) gives
+    them.  Returns k_new, v_new [B, Hkv, hd]."""
+    b, hkv_loc, hd = k_new.shape
+    blocks = cfg.n_kv_heads // hkv_loc
+    kv = mesh_ctx.tp_gather(torch.cat([k_new, v_new], 1))[::tp // blocks]
+    kv = kv.permute(1, 0, 2, 3).reshape(b, blocks, 2, hkv_loc, hd)
+    return (kv[:, :, 0].reshape(b, cfg.n_kv_heads, hd),
+            kv[:, :, 1].reshape(b, cfg.n_kv_heads, hd))
 
 
 def merge_shard_partials(accs, ms, ls):
@@ -131,11 +162,10 @@ def paged_decode_block(cfg: ModelConfig, p_attn, h, entry: dict, lengths,
     b, hd = h.shape[0], cfg.hd
     q, k_new, v_new = L.qkv_projections(cfg, p_attn, h)
     out, kp, vp = paged_decode_attention(
-        cfg, q.view(b, cfg.n_heads, hd), k_new.view(b, cfg.n_kv_heads, hd),
-        v_new.view(b, cfg.n_kv_heads, hd), entry["k_pages"],
-        entry["v_pages"], lengths, vm, write_mask,
+        cfg, q.view(b, -1, hd), k_new.view(b, -1, hd), v_new.view(b, -1, hd),
+        entry["k_pages"], entry["v_pages"], lengths, vm, write_mask,
         epilogue=L.qk_epilogue_args(cfg, p_attn))
-    out = out.reshape(b, 1, cfg.n_heads * cfg.hd) @ p_attn["wo"]
+    out = L.attention_out(cfg, p_attn, out.reshape(b, 1, -1))
     return out, {"k_pages": kp, "v_pages": vp}
 
 

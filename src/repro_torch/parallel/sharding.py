@@ -17,12 +17,19 @@ Rule sets:
 
 A mesh is a ``DeviceMesh`` or any object with a ``.shape`` dict of axis
 sizes.
+
+:func:`tp_shard_params` is the tensor-parallel split form of a decoder's
+weights under ``tp_only``: one rank's whole-head, column, expert and vocab
+shards (what :meth:`repro_torch.models.model.Model.shard` holds), where the
+reference leaves the split to GSPMD.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from typing import Any, Callable, Sequence
+
+import torch
 
 from repro_torch.launch.mesh import mesh_shape
 
@@ -139,7 +146,6 @@ class NamedSharding:
         mesh's device type: each rank keeps a copy of its own shard, with
         no collective (``src_data_rank=None``), and holds nothing of the
         whole."""
-        import torch
         from torch.distributed.tensor import DTensor, distribute_tensor
         d = distribute_tensor(tensor.to(self.mesh.device_type), self.mesh,
                               self.placements, src_data_rank=None)
@@ -214,3 +220,76 @@ def cache_pspecs(cache_shapes, mesh, *, dp_axes: Sequence[str],
         return leaf_spec(name, tree)
 
     return walk(cache_shapes, None)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-parallel split form (serving, ``tp_only``)
+# ---------------------------------------------------------------------------
+def head_shard(n_heads: int, n_kv_heads: int, tp: int, index: int):
+    """``(q_lo, q_hi, kv_lo, kv_hi)``: the query heads of tp rank ``index``
+    and the KV heads they read, whole heads, or None where the heads stay
+    whole on every rank.  Query heads split evenly, ``[index * hl, (index
+    + 1) * hl)``; the KV heads are ``Hkv / tp`` of them where tp divides
+    ``Hkv``, and where tp > Hkv the one KV head the rank's heads read, held
+    by the ``tp / Hkv`` ranks that share it.  Heads tp does not divide, and
+    a rank's heads that would straddle two KV-head groups without holding
+    whole ones, stay whole."""
+    if tp == 1 or n_heads % tp:
+        return None
+    hl, group = n_heads // tp, n_heads // n_kv_heads
+    if hl % group and group % hl:
+        return None
+    q_lo = index * hl
+    return q_lo, q_lo + hl, q_lo // group, (q_lo + hl - 1) // group + 1
+
+
+def _block(size: int, tp: int, index: int):
+    """Rank ``index``'s block of a dim of ``size`` split over ``tp``, or None
+    where tp does not divide it (the dim stays whole, as :func:`spec_for`
+    drops the axis)."""
+    if tp == 1 or size % tp:
+        return None
+    n = size // tp
+    return index * n, (index + 1) * n
+
+
+def tp_shard_params(cfg, params: dict, axes: dict, tp: int,
+                    index: int) -> dict:
+    """Tp rank ``index``'s shards of a decoder's ``params`` (nested dicts of
+    tensors, with their logical ``axes`` tree) under ``tp_only``: each
+    ``q_heads`` / ``kv_heads`` dim (flat ``H * hd`` columns) to the rank's
+    whole heads (:func:`head_shard`), ``mlp`` to its column block,
+    ``experts`` to its block of experts where tp divides them (the
+    ``mlp`` dim of those tensors then stays whole, as :func:`spec_for`
+    assigns "model" once), ``vocab`` to its row or column block; the
+    router stays whole (top-k needs every expert's score), as do
+    ``embed``, the norms and every dim tp does not divide.  Returns new
+    contiguous tensors (the whole ones can be freed)."""
+    heads = head_shard(cfg.n_heads, cfg.n_kv_heads, tp, index)
+    hd = cfg.hd
+
+    def cut(name, ax, size, used):
+        if ax in ("q_heads", "kv_heads"):
+            if heads is None:
+                return None
+            lo, hi = heads[:2] if ax == "q_heads" else heads[2:]
+            return lo * hd, hi * hd
+        if ax == "experts" and name == "router":
+            return None
+        if ax in ("mlp", "experts", "vocab") and "tp" not in used:
+            return _block(size, tp, index)
+        return None
+
+    def leaf(name, t, ax):
+        used: set = set()
+        for i, a in enumerate(ax):
+            span = cut(name, a, t.shape[i], used)
+            if span is not None:
+                used.add("tp")
+                t = t.narrow(i, span[0], span[1] - span[0])
+        return t.clone(memory_format=torch.contiguous_format) if used else t
+
+    def walk(tree, ax_tree):
+        return {k: walk(v, ax_tree[k]) if isinstance(v, dict)
+                else leaf(k, v, ax_tree[k]) for k, v in tree.items()}
+    return walk(params, axes)

@@ -269,17 +269,24 @@ def cells(tmp_path_factory):
 
 def test_run_cell_decode_ok_and_long_skipped(cells):
     """qwen3-0.6b decode_32k counts ok on the 16 x 16 mesh (one rank's
-    rows, every tp rank computing the whole step) and long_500k is skipped
-    with the reference's reason; the records are written, and no group is
-    left running."""
+    rows on the rank's shards of the weights: its heads, MLP columns and
+    vocab block, so almost nothing is computed alike on every tp rank, and
+    its per-device peak falls below that of the whole-weights step every tp
+    rank would compute, counted on the tp-1 twin) and long_500k is skipped with the
+    reference's reason; the records are written, and no group is left
+    running."""
     import torch.distributed as dist
     out, recs = cells
+    dec = recs["decode_32k"]
     dec, long_ = recs["decode_32k"], recs["long_500k"]
     assert not dist.is_initialized()
     assert dec["status"] == "ok", dec.get("traceback")
     assert dec["n_devices"] == 256 and dec["rows_per_rank"] == 8
     assert dec["roofline"]["dominant"] == "memory"
-    assert dec["replicated_over_tp"] == pytest.approx(1.0, abs=0.05)
+    twin = dec["tp1_twin"]
+    assert dec["split_form"] and dec["replicated_over_tp"] <= 0.10
+    assert dec["probes"][1]["flops"] < twin["flops"] / 8
+    assert dec["probes"][1]["peak_bytes"] < twin["peak_bytes"] / 4
     assert dec["fits_80gb"] and dec["memory"]["how"] in ("full_depth",
                                                          "extrapolated")
     assert dec["memory"]["peak_bytes"] > dec["memory"]["resident_bytes"]
@@ -295,15 +302,20 @@ def test_run_cell_decode_ok_and_long_skipped(cells):
 
 def test_roofline_rows_over_artifacts(cells):
     """roofline_torch.rows() renders one row per artifact: the terms, the
-    ratio, the peak and a hint for an ok cell, SKIP for a skipped one."""
+    ratio, the peak and a hint for an ok cell, SKIP for a skipped one; the
+    hint asks to split the model axis only of a step every tp rank
+    computes whole (the cell as it read on whole weights)."""
     from benchmarks import roofline_torch
-    out, _ = cells
+    out, recs = cells
+    dec = recs["decode_32k"]
     rows = {r["name"]: r["derived"] for r in roofline_torch.rows(str(out))}
     assert set(rows) == {"roofline/qwen3-0.6b/decode_32k/single",
                          "roofline/qwen3-0.6b/long_500k/single"}
     ok = rows["roofline/qwen3-0.6b/decode_32k/single"]
     assert "dom=memory" in ok and "useful=" in ok and "fits_80gb=True" in ok
-    assert "model axis" in ok and "3.35 TB/s" in ok
+    assert "model axis" not in ok and "3.35 TB/s" in ok
+    assert "model axis" in roofline_torch.hint(dict(dec,
+                                                    replicated_over_tp=1.0))
     assert rows["roofline/qwen3-0.6b/long_500k/single"].startswith("SKIP: ")
     assert roofline_torch.rows(str(out / "none"))[0]["name"] == \
         "roofline/none"

@@ -180,9 +180,14 @@ def _check_shard_split(n_shards, window):
 
 def test_resolve_impl():
     """'auto' takes the composed oracle on CPU tensors and the kernels on
-    CUDA ones; 'fused' on the CPU raises (no interpret mode); a ragged head
-    group raises, but for 'composed' and for 'auto' on meta tensors (the
-    dry-run's counting device), which take the composed oracle."""
+    CUDA ones; 'fused' on the CPU raises (no interpret mode).  The kernels
+    take whole KV-head groups and a shard inside one group (a
+    tensor-parallel rank's heads at tp > Hkv: ``group % hl == 0``), so
+    'auto' on CUDA tensors is 'fused' for both; a shard that straddles two
+    groups without holding whole ones (``hl % group`` and ``group % hl``
+    both non-zero) raises, but for 'composed' and for 'auto' on meta
+    tensors (the dry-run's counting device), which take the composed
+    oracle.  The fused step's head grouping follows (``kernel_group``)."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     meta = torch.device("meta")
     assert pt_ops.resolve_impl("auto", 8, 2, cpu) == "composed"
@@ -191,13 +196,20 @@ def test_resolve_impl():
     assert pt_ops.resolve_impl("fused", 8, 2, cuda) == "fused"
     with pytest.raises(RuntimeError):
         pt_ops.resolve_impl("fused", 8, 2, cpu)
-    with pytest.raises(ValueError):
-        pt_ops.resolve_impl("auto", 7, 2, cpu)
-    for flag, dev in (("auto", cuda), ("fused", cuda), ("fused", cpu),
-                      ("auto", cpu)):
-        with pytest.raises(ValueError):
-            pt_ops.resolve_impl(flag, 2, 4, dev)
-    assert pt_ops.resolve_impl("auto", 2, 4, meta) == "composed"
+    # inside one group: danube / mixtral at tp 16 (hl 2, G 4), hl 1
+    for hl, group in ((2, 4), (1, 4), (1, 2), (4, 8), (7, 7)):
+        assert pt_ops.resolve_impl("auto", hl, group, cuda) == "fused"
+        assert pt_ops.resolve_impl("fused", hl, group, cuda) == "fused"
+        assert pt_ops.resolve_impl("auto", hl, group, cpu) == "composed"
+    # straddling: raises on the kernels' path
+    for hl, group in ((7, 2), (2, 7), (3, 2), (4, 6)):
+        for flag, dev in (("auto", cuda), ("fused", cuda), ("fused", cpu),
+                          ("auto", cpu)):
+            with pytest.raises(ValueError):
+                pt_ops.resolve_impl(flag, hl, group, dev)
+        assert pt_ops.resolve_impl("auto", hl, group, meta) == "composed"
     assert pt_ops.resolve_impl("auto", 8, 2, meta) == "composed"
     for dev in (cpu, cuda, meta):
-        assert pt_ops.resolve_impl("composed", 2, 4, dev) == "composed"
+        assert pt_ops.resolve_impl("composed", 2, 7, dev) == "composed"
+    assert [pt_ops.kernel_group(hl, g) for hl, g in
+            ((8, 2), (2, 4), (1, 4), (2, 7), (4, 6))] == [2, 2, 1, None, None]

@@ -145,3 +145,140 @@ def test_fused_eos_early_exit(runs):
     assert fused == step == base[:cut]
     assert st_f["telemetry"] == st_s["telemetry"]
     assert st_f["decode_steps"] == st_s["decode_steps"] == len(prompt) + cut
+
+
+# -- BlockManager: a restored donor offers only the pages it maps --------------
+def _managers(module, kinds=("tree", "linear")):
+    """tests/test_prefix_index.py's managers (14 frames, 3 sequences, 6
+    pages of 2 slots, retention and spill) from ``module``."""
+    class NullIO:
+        def read(self, frames):
+            return [("pg", int(f)) for f in frames]
+
+        def write(self, assignments):
+            pass
+    out = []
+    for kind in kinds:
+        bm = module.BlockManager(
+            n_frames=14, n_seqs=3, max_lpages=6, page_slots=2,
+            policy="on_demand", share_prefixes=True, retain_frames=8,
+            n_spill_frames=4, prefix_index=kind)
+        bm.page_io = NullIO()
+        out.append(bm)
+    return out
+
+
+_BASES = [np.arange(12, dtype=np.int32),
+          np.concatenate([np.arange(6, dtype=np.int32),
+                          np.arange(20, 26, dtype=np.int32)]),
+          np.arange(100, 112, dtype=np.int32)]
+
+
+def _observe(mgrs):
+    """What tests/test_prefix_index.py's _observe compares, across any
+    managers (either package's): matches, admission costs, stats, the
+    allocator's free list and the block tables."""
+    import dataclasses
+    probes = [b[:k] for b in _BASES for k in (3, 7, 12)]
+    seen = []
+    for m in mgrs:
+        stats = dict(m.stats())
+        stats.pop("prefix_index")
+        seen.append(([m._match_prefix(p) for p in probes],
+                     [dataclasses.astuple(m.admission_cost(p))
+                      for p in probes], stats, list(m.allocator._free),
+                     m.block_table.tolist()))
+    assert all(s == seen[0] for s in seen[1:])
+
+
+def _drive(mgrs, ops):
+    """tests/test_prefix_index.py::test_tree_linear_differential's op
+    stream on every manager in lockstep: each op's result and any
+    OutOfFrames the same on all, every observable after every op, and a
+    leak-free shutdown."""
+    live, grown, swapped = {}, {}, set()
+
+    def every(fn):
+        outs, errs = [], []
+        for m in mgrs:
+            try:
+                outs.append(fn(m))
+                errs.append(None)
+            except RuntimeError as e:          # OutOfFrames of either package
+                assert type(e).__name__ == "OutOfFrames", e
+                outs.append(None)
+                errs.append("OutOfFrames")
+        assert all(e == errs[0] for e in errs) and all(
+            o == outs[0] for o in outs), (outs, errs)
+        return outs[0], errs[0]
+
+    for x in ops:
+        op, seq, val = (x >> 2) % 6, x % 3, x >> 5
+        if op == 0 and seq not in live and seq not in swapped:
+            prompt = _BASES[val % 3][:2 + val % 11].copy()
+
+            def begin(m, s=seq, p=prompt):
+                n = m.begin_seq(s, p)
+                for pos in range(min(n, len(p) - 1), len(p)):
+                    m.ensure_writable(s, pos)
+                return n
+            _, err = every(begin)
+            if err is None:
+                live[seq], grown[seq] = prompt, len(prompt)
+            else:
+                every(lambda m, s=seq: m.release_seq(s))
+        elif op == 1 and seq in live and grown[seq] < 12:
+            _, err = every(lambda m, s=seq, p=grown[seq]:
+                           m.ensure_writable(s, p))
+            if err is None:
+                grown[seq] += 1
+        elif op == 2 and seq in live:
+            every(lambda m, s=seq, c=val % 2: m.release_seq(s, completed=c))
+            del live[seq], grown[seq]
+        elif op == 3 and seq in live:
+            pages, _ = every(lambda m, s=seq: m.evict_seq(s, s))
+            if pages is not None:
+                del live[seq]
+                swapped.add(seq)
+        elif op == 4 and seq in swapped and seq not in live:
+            prompt = _BASES[val % 3][:4].copy()
+            _, err = every(lambda m, s=seq, p=prompt:
+                           m.restore_seq(s, s, tokens=p))
+            if err is None:
+                swapped.discard(seq)
+                live[seq], grown[seq] = prompt, 12
+        elif op == 5:
+            for m in mgrs:
+                m.share_prefixes = bool(val % 2)
+        _observe(mgrs)
+    for s in list(live):
+        every(lambda m, q=s: m.release_seq(q, completed=True))
+    _observe(mgrs)
+    assert all(m.shutdown() == 0 for m in mgrs)
+
+
+#: the stream on which the reference's tree and linear managers assert:
+#: sequence 1 (prompt [0, 1], one page) is evicted and restored with the
+#: 4-token tokens=[0, 1, 2, 3]; sequence 0's prompt [0, 1, 2] then matches
+#: 3 tokens of it, 2 pages, and the donor maps only page 0
+UNMAPPED_DONOR = [1, 1, 1, 1, 1, 10525, 16, 48]
+
+
+@pytest.mark.parametrize("stream", ["unmapped-donor", "reference-survives"])
+def test_restored_donor_offers_only_its_pages(stream):
+    """The port's tree and linear BlockManagers stay identical in every
+    observable and leak-free on the stream that makes the reference's
+    assert on an unmapped donor page (the port records a restored
+    sequence's tokens only as far as its pages map them; the reference
+    is checked to still assert there); on a seeded stream the reference
+    survives, both port managers equal the reference's in every
+    observable after every op."""
+    from repro.emem_vm import block_manager as jax_bm
+    from repro_torch.emem_vm import block_manager as port_bm
+    if stream == "unmapped-donor":
+        with pytest.raises(AssertionError, match="live"):
+            _drive(_managers(jax_bm), UNMAPPED_DONOR)
+        _drive(_managers(port_bm), UNMAPPED_DONOR)
+    else:
+        ops = np.random.default_rng(7).integers(0, 2 ** 16, 48).tolist()
+        _drive(_managers(jax_bm, ("tree",)) + _managers(port_bm), ops)
