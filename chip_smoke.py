@@ -271,6 +271,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import itertools
 import json
 import os
@@ -3620,8 +3621,120 @@ class ReversedDecodeDots:
         self.mod.decode_attention = self.fn
 
 
+class KernelOrder:
+    """While entered, the plain attention paths compute in K3's and K4's
+    reduction structure, in f32 from the same inputs (the witness of phase
+    encdec's bf16 lockstep): ``fa_ref.mha`` as ``fa_tc_kernel`` walks a
+    row (64-key tiles, scores in log2 units, an online softmax by exp2,
+    each p split into bf16 hi + lo before p.v) and
+    ``flash_ref.decode_attention`` as the split walk (64-position splits,
+    each its own (acc, m, l), merged in split order by log-sum-exp)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ref as fa_ref
+        from repro_torch.kernels.paged_decode import flash_ref
+        self.saved = [(fa_ref, "mha", fa_ref.mha),
+                      (flash_ref, "decode_attention",
+                       flash_ref.decode_attention)]
+        fa_ref.mha = self._mha
+        flash_ref.decode_attention = self._decode
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    @staticmethod
+    def _mha(q, k, v, *, causal=True, window=None, scale=None):
+        import torch
+        from repro_torch.kernels.flash_attention.ref import attention_mask
+        b, hq, sq, d = q.shape
+        hkv, skv = k.shape[1], k.shape[2]
+        scale_log2 = (d ** -0.5 if scale is None else scale) \
+            * 1.4426950408889634
+        qf = q.reshape(b, hkv, hq // hkv, sq, d).float()
+        mask = attention_mask(sq, skv, causal=causal, window=window,
+                              device=q.device)
+        m = torch.full(qf.shape[:-1], -torch.inf, device=q.device)
+        l = torch.zeros_like(m)
+        o = torch.zeros_like(qf)
+        for k0 in range(0, skv, 64):
+            kt, vt = k[:, :, k0:k0 + 64].float(), v[:, :, k0:k0 + 64].float()
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kt) * scale_log2
+            s = torch.where(mask[:, k0:k0 + 64], s, -torch.inf)
+            m_new = torch.maximum(m, s.amax(-1))
+            live = m_new > -torch.inf
+            alpha = torch.where(live, torch.exp2(m - m_new), 1.0)
+            p = torch.where(live[..., None], torch.exp2(s - m_new[..., None]),
+                            0.0)
+            m, l = m_new, l * alpha + p.sum(-1)
+            hi = p.to(torch.bfloat16).float()
+            lo = (p - hi).to(torch.bfloat16).float()
+            o = o * alpha[..., None] + torch.einsum(
+                "bhgqk,bhkd->bhgqd", hi, vt) + torch.einsum(
+                "bhgqk,bhkd->bhgqd", lo, vt)
+        out = o / torch.where(l == 0, 1.0, l)[..., None]
+        return out.reshape(b, hq, sq, d).to(q.dtype)
+
+    @staticmethod
+    def _decode(q, k, v, lengths, *, scale=None, window=None):
+        import torch
+        b, hq, d = q.shape
+        hkv, s = k.shape[1], k.shape[2]
+        scale = d ** -0.5 if scale is None else scale
+        qf = q.reshape(b, hkv, hq // hkv, d).float()
+        pos = torch.arange(s, device=q.device)[None, :]
+        valid = pos < lengths[:, None]
+        if window is not None:
+            valid &= pos >= (lengths[:, None] - window)
+        recs = []
+        for k0 in range(0, s, 64):
+            sc = torch.einsum("bhgd,bhsd->bhgs", qf,
+                              k[:, :, k0:k0 + 64].float()) * scale
+            ok = valid[:, None, None, k0:k0 + 64]
+            sc = torch.where(ok, sc, -1e30)
+            m = sc.amax(-1)
+            p = torch.where(ok, torch.exp(sc - m[..., None]), 0.0)
+            recs.append((torch.einsum("bhgs,bhsd->bhgd", p,
+                                      v[:, :, k0:k0 + 64].float()),
+                         m, p.sum(-1)))
+        mm = torch.stack([m for _, m, _ in recs]).amax(0)
+        acc = sum(a * torch.exp(m - mm)[..., None] for a, m, _ in recs)
+        l = sum(l_ * torch.exp(m - mm) for _, m, l_ in recs)
+        out = acc / torch.where(l == 0, 1.0, l)[..., None]
+        return out.reshape(b, hq, d).to(q.dtype)
+
+
+class PlainK4:
+    """While entered, the batch-layout decode attention takes K4's plain
+    version on CUDA tensors too."""
+
+    def __enter__(self):
+        from repro_torch.kernels.paged_decode import flash_ops
+        self.mod, self.fn = flash_ops, flash_ops._use_kernel
+        flash_ops._use_kernel = lambda use_kernel, q: False
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._use_kernel = self.fn
+
+
+class PlainK3:
+    """While entered, ``attn_impl="pallas"`` full-sequence attention takes
+    K3's plain version on CUDA tensors too."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        self.mod, self.fn = fa_ops, fa_ops.flash_attention
+        fa_ops.flash_attention = functools.partial(self.fn, use_kernel=False)
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.flash_attention = self.fn
+
+
 def encdec_decode(model, embeds, steps, oracle=None, reordered=None,
-                  cross=None, top2=None):
+                  cross=None, top2=None, extra=None):
     """prepare_cross_cache, then ``steps`` greedy decode steps from token 0
     (each step feeds back its argmax).  With ``oracle`` and ``reordered``
     (the plain path, and the plain path summed in another order: run under
@@ -3634,7 +3747,12 @@ def encdec_decode(model, embeds, steps, oracle=None, reordered=None,
     from the oracle's}, max |logit| of the oracle).  ``cross`` gives the
     cross-attention K/V (``xk``, ``xv``) in place of the model's own
     encoder's; ``top2`` (a list) collects each step's two largest logits
-    per sequence [B, 2] on the host."""
+    per sequence [B, 2] on the host.  ``extra`` ({name: (model, context
+    manager class)}, with ``oracle``) runs each step on those models too,
+    each inside its context, and adds name: max |logit diff| of the decode
+    against it, name + "_oracle": of it against the oracle, and name +
+    "_bits_equal": the steps whose logits equal the decode's bit for
+    bit."""
     import torch
     b, dev = embeds.shape[0], embeds.device
     vocab = model.cfg.vocab_size
@@ -3645,10 +3763,14 @@ def encdec_decode(model, embeds, steps, oracle=None, reordered=None,
     toks, scale = [], 0.0
     diff = {"oracle": 0.0, "reordered": 0.0, "oracle_argmax": 0,
             "reordered_argmax": 0}
+    extra = extra or {}
+    for name in extra:
+        diff.update({name: 0.0, f"{name}_oracle": 0.0,
+                     f"{name}_bits_equal": 0})
     for i in range(steps):
         lengths = torch.full((b,), i + 1, dtype=torch.int32, device=dev)
         copies = [dict(cache, k=cache["k"].clone(), v=cache["v"].clone())
-                  for _ in (oracle, reordered) if oracle is not None]
+                  for _ in range(2 + len(extra)) if oracle is not None]
         logits, cache = model.decode_step(tok, cache, lengths)
         logits = logits[:, :vocab]
         if oracle is not None:
@@ -3661,6 +3783,13 @@ def encdec_decode(model, embeds, steps, oracle=None, reordered=None,
             for name, got in (("oracle", logits), ("reordered", other)):
                 diff[name] = max(diff[name], (got - want).abs().max().item())
                 diff[f"{name}_argmax"] += int((got.argmax(-1) != top).sum())
+        for j, (name, (m, ctx)) in enumerate(extra.items()):
+            with ctx():
+                got = m.decode_step(tok, copies[2 + j], lengths)[0][:, :vocab]
+            diff[name] = max(diff[name], (logits - got).abs().max().item())
+            diff[f"{name}_oracle"] = max(diff[f"{name}_oracle"],
+                                         (got - want).abs().max().item())
+            diff[f"{name}_bits_equal"] += int(torch.equal(logits, got))
         if top2 is not None:
             top2.append(logits.topk(2, -1).values.cpu())
         tok = logits.argmax(-1, keepdim=True).to(torch.int32)
@@ -3709,28 +3838,42 @@ def first_divergence(a, b) -> list:
     return out
 
 
-def encdec_lockstep(model, embeds, dtype: str) -> dict:
+def encdec_lockstep(model, embeds, dtype: str, witness: bool = False) -> dict:
     """The lockstep gate of phase archs for ``model`` (the kernels): each of
     ENCDEC_STEPS steps against the plain path (attn_impl "ref") and the
     plain path summed in another order (the cross-attention over 128-key
     chunks, the self-attention's q.k in reverse) from the kernel decode's
     cache before the step; the kernels' logits within the larger of
     LOGIT_RTOL[dtype] and ORDER_FACTOR times the plain path's own
-    disagreement.  Returns the readings, with ``ok``."""
+    disagreement.  With ``witness``, each step also runs, reported beside
+    the gate, the plain path in the kernels' reduction structure
+    (KernelOrder), and the kernels with K4 alone replaced by its plain
+    version ("k3_only") and with K3 alone ("k4_only"): each one's gap to
+    the kernels and to the plain path, relative to max |logit|, and the
+    steps it equals the kernels bit for bit.  Returns the readings, with
+    ``ok``."""
     cfg = model.cfg
     oracle = model.with_config(dataclasses.replace(cfg, attn_impl="ref"))
     reordered = model.with_config(dataclasses.replace(
         cfg, attn_impl="chunked", attn_chunk_q=128, attn_chunk_k=128))
+    extra = {"witness": (oracle, KernelOrder), "k3_only": (model, PlainK4),
+             "k4_only": (model, PlainK3)} if witness else None
     _, diff, scale = encdec_decode(model, embeds, ENCDEC_STEPS, oracle,
-                                   reordered)
+                                   reordered, extra=extra)
     rel = {k: diff[k] / scale for k in ("oracle", "reordered")}
     lim = max(LOGIT_RTOL[dtype], ORDER_FACTOR * rel["reordered"])
-    return {"rel": rel["oracle"], "limit": lim,
-            "reordered_rel": rel["reordered"], "max_abs_logit": scale,
-            "argmax_differ": diff["oracle_argmax"],
-            "reordered_argmax_differ": diff["reordered_argmax"],
-            "of": ENCDEC_STEPS * embeds.shape[0],
-            "ok": bool(np.isfinite(rel["oracle"]) and rel["oracle"] <= lim)}
+    out = {"rel": rel["oracle"], "limit": lim,
+           "reordered_rel": rel["reordered"], "max_abs_logit": scale,
+           "argmax_differ": diff["oracle_argmax"],
+           "reordered_argmax_differ": diff["reordered_argmax"],
+           "of": ENCDEC_STEPS * embeds.shape[0],
+           "ok": bool(np.isfinite(rel["oracle"]) and rel["oracle"] <= lim)}
+    for name in extra or {}:
+        out[name] = {"vs_kernels_rel": diff[name] / scale,
+                     "vs_plain_rel": diff[f"{name}_oracle"] / scale,
+                     "bits_equal_steps": diff[f"{name}_bits_equal"],
+                     "of": ENCDEC_STEPS}
+    return out
 
 
 def k3_inputs(fn):
@@ -3825,6 +3968,56 @@ def k4_timing(dev, hkv, g, d, s, err):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def k4_real_f64(fn) -> dict:
+    """K4 on the inputs it is given while ``fn()`` runs, each launch beside
+    its plain version (``flash_ref.decode_attention``), the plain version
+    with each q.k summed in reverse order, and the same attention in
+    float64: the largest |error| of each against float64, and the share of
+    output elements that differ from the plain version's bits, for K4 and
+    for the reversed plain version."""
+    import torch
+    from repro_torch.kernels.paged_decode import flash as K4
+    from repro_torch.kernels.paged_decode import flash_ref
+    got, launch = [], K4.flash_decode
+
+    def capture(q, k, v, lengths, **kw):
+        got.append((q.clone(), k.clone(), v.clone(), lengths.clone(), kw))
+        return launch(q, k, v, lengths, **kw)
+    K4.flash_decode = capture
+    try:
+        fn()
+    finally:
+        K4.flash_decode = launch
+    err = {"k4": 0.0, "plain": 0.0, "reversed": 0.0}
+    differ = {"k4": 0, "reversed": 0}
+    n = 0
+    for q, k, v, lengths, kw in got:
+        b, hkv, g, d = q.shape
+        qh = q.reshape(b, hkv * g, d)
+        rev = torch.arange(d - 1, -1, -1, device=q.device)
+        outs = {"k4": launch(q, k, v, lengths, **kw)[0].reshape(qh.shape),
+                "plain": flash_ref.decode_attention(qh, k, v, lengths, **kw),
+                "reversed": flash_ref.decode_attention(
+                    qh[..., rev], k[..., rev], v, lengths, **kw)}
+        sc = torch.einsum("bhgd,bhsd->bhgs", q.double(), k.double()) * (
+            kw.get("scale") or d ** -0.5)
+        pos = torch.arange(k.shape[2], device=q.device)[None, :]
+        ok = pos < lengths[:, None]
+        if kw.get("window") is not None:
+            ok &= pos >= lengths[:, None] - kw["window"]
+        sc = sc.masked_fill(~ok[:, None, None, :], -torch.inf)
+        want = torch.einsum("bhgs,bhsd->bhgd", torch.softmax(sc, -1),
+                            v.double()).reshape(qh.shape)
+        for name, o in outs.items():
+            err[name] = max(err[name], (o.double() - want).abs().max().item())
+        for name in differ:
+            differ[name] += int((outs[name] != outs["plain"]).sum())
+        n += outs["plain"].numel()
+    return {"launches": len(got), "vs_float64": err,
+            "share_not_bit_equal_to_plain": {k: v / n
+                                             for k, v in differ.items()}}
+
+
 def phase_encdec(dev):
     """seamless-m4t-medium at its published widths (random weights from
     seed 0) on SyntheticLM's frame embeddings (B 8, S_src 512, seed 0).
@@ -3853,7 +4046,9 @@ def phase_encdec(dev):
     max(1e-4, ORDER_FACTOR x "ref" against "chunked"), relative; the whole
     paths' free-running tokens, where they part and the encoder outputs'
     distance reported.  Every gate is read before the phase fails, and a
-    failing phase prints its line first.  Timings: a profiled bf16 decode
+    failing phase prints its line first.  K4 on one bf16 step's real
+    inputs against float64 beside its plain version (``k4_real_f64``).
+    Timings: a profiled bf16 decode
     step against the read of its weights (and of its caches); K3 at Sq 1 /
     Skv 512 / D 64 with SDPA's time; K4 at D 64 / G 1.  Returns ({kernel:
     launches on the counted path}, results)."""
@@ -3903,7 +4098,8 @@ def phase_encdec(dev):
     res["launches"] = launches
     res["decode_step_ms"] = res["serve_s"] / ENCDEC_STEPS * 1e3
     failed = []
-    res["bf16_lockstep"] = encdec_lockstep(model, embeds, "bfloat16")
+    res["bf16_lockstep"] = encdec_lockstep(model, embeds, "bfloat16",
+                                           witness=True)
     if not res["bf16_lockstep"]["ok"]:
         failed.append("bf16 lockstep logits")
     # K3 on real inputs: the encoder's layers, and one step's cross-attention
@@ -3947,6 +4143,7 @@ def phase_encdec(dev):
 
     def step():
         model.decode_step(tok, cache, step_len)
+    res["k4_real_inputs"] = k4_real_f64(step)
     t = timed(step, iters=20)
     dev_ms, by_name = device_profile(step, iters=10)
     weight_bytes = sum(p.numel() * p.element_size() for p in (
@@ -4856,26 +5053,35 @@ def check_split_groups(dev, err):
 
 class TwoRankOrder:
     """One card's whole weights computed in the pieces of the split form's
-    two tensor-parallel ranks (tp 2, the heads, KV heads and experts
-    split in halves): the q/k/v projections, the decode attention (K4)
-    and the unembedding on each half of the columns or heads, the
-    attention's ``wo`` product as its two halves' products added, the
-    experts' SwiGLU on each half of the experts, and each MoE block's
-    output as the two ranks' partials added, each one ``moe._combine``
-    itself over its half of the experts and of the shared expert's
-    columns.  The values are the whole model's; only the shapes of the
-    products and the order of the sums change, to those of the ranks."""
+    two tensor-parallel ranks (tp 2, the heads, KV heads, experts and SSM
+    heads split in halves): the q/k/v projections (self-, cross-attention
+    and the encoder's K/V), the decode attention (K4) and the unembedding
+    on each half of the columns or heads, the attention's ``wo`` product
+    as its two halves' products added, a dense
+    MLP as its two column halves' SwiGLUs added, the experts' SwiGLU on
+    each half of the experts, and each MoE block's output as the two
+    ranks' partials added, each one ``moe._combine`` itself over its half
+    of the experts and of the shared expert's columns; a Mamba2 mixer's
+    input projection on each rank's columns (its heads' z, x and dt, every
+    B and C), its gated norm's mean of squares as the two halves' sums
+    added, its ``w_out`` product as the two halves' products added.  The
+    values are the whole model's; only the shapes of the products and the
+    order of the sums change, to those of the ranks."""
 
     def __enter__(self):
         from repro_torch.kernels.paged_decode import flash_ops
-        from repro_torch.models import layers, moe
+        from repro_torch.models import layers, moe, ssm
         from repro_torch.parallel import mesh_ctx
-        patches = [(layers, "qkv_projections", self._qkv),
+        patches = [(layers, "project", self._project),
                    (layers, "attention_out", self._attention_out),
                    (layers, "unembed", self._unembed),
+                   (layers, "mlp_block", self._mlp),
                    (flash_ops, "decode_attention", self._decode),
                    (moe, "_experts", self._experts),
                    (moe, "_combine", self._combine),
+                   (ssm, "in_proj", self._in_proj),
+                   (ssm, "gated_norm", self._gated_norm),
+                   (ssm, "out_proj", self._out_proj),
                    (mesh_ctx, "tp_index", lambda: self.rank),
                    (mesh_ctx, "tp_sum", lambda x: x)]
         self.saved = [(mod, name, getattr(mod, name))
@@ -4894,17 +5100,14 @@ class TwoRankOrder:
     def _halves(n: int):
         return [slice(r * (n // 2), (r + 1) * (n // 2)) for r in range(2)]
 
-    def _qkv(self, cfg, p, x):
+    def _project(self, cfg, p, name, x):
         import torch
-        outs = []
-        for name in "qkv":
-            w = p["w" + name]
-            parts = [x @ w[:, c].contiguous() for c in self._halves(w.shape[1])]
-            if cfg.qkv_bias:
-                parts = [y + p["b" + name][c] for y, c in
-                         zip(parts, self._halves(w.shape[1]))]
-            outs.append(torch.cat(parts, -1))
-        return tuple(outs)
+        w = p["w" + name]
+        parts = [x @ w[:, c].contiguous() for c in self._halves(w.shape[1])]
+        if cfg.qkv_bias:
+            parts = [y + p["b" + name][c] for y, c in
+                     zip(parts, self._halves(w.shape[1]))]
+        return torch.cat(parts, -1)
 
     def _attention_out(self, cfg, p, out):
         wo = p["wo"]
@@ -4942,28 +5145,83 @@ class TwoRankOrder:
 
     def _combine(self, cfg, p, xt, out_buf, flat_e, pos, keep, weights):
         parts = []
-        for r, (ex, cols) in enumerate(zip(
-                self._halves(cfg.n_experts),
-                self._halves(p["shared"]["w_down"].shape[0]))):
+        for r, ex in enumerate(self._halves(cfg.n_experts)):
             self.rank = r
-            shared = {"w_gate": p["shared"]["w_gate"][:, cols].contiguous(),
-                      "w_up": p["shared"]["w_up"][:, cols].contiguous(),
-                      "w_down": p["shared"]["w_down"][cols]}
-            rank_p = {"w_gate": p["w_gate"][ex], "w_down": p["w_down"][ex],
-                      "shared": shared, "shared_gate": p["shared_gate"]}
+            rank_p = {"w_gate": p["w_gate"][ex], "w_down": p["w_down"][ex]}
+            if "shared" in p:
+                rank_p.update(shared=self._columns(p["shared"], r),
+                              shared_gate=p["shared_gate"])
             parts.append(self.orig["_combine"](
                 cfg, rank_p, xt, out_buf[ex], flat_e, pos, keep, weights))
         return parts[0] + parts[1]
 
+    def _columns(self, p, r):
+        """Rank ``r``'s half of a SwiGLU's columns (and ``w_down``'s
+        rows)."""
+        cols = self._halves(p["w_down"].shape[0])[r]
+        return {"w_gate": p["w_gate"][:, cols].contiguous(),
+                "w_up": p["w_up"][:, cols].contiguous(),
+                "w_down": p["w_down"][cols]}
 
-def batch_logits(model, toks, steps: int, attn_impl: str = "pallas"):
+    def _mlp(self, p, x, d_ff):
+        from repro_torch.models import layers
+        a, b = (layers.swiglu(self._columns(p, r), x) for r in range(2))
+        return a + b
+
+    @staticmethod
+    def _ssm_cols(p, r):
+        """Rank ``r``'s ``w_in`` columns (its heads' z, x and dt, every B and
+        C: one group) and its inner channels."""
+        import torch
+        di, h = p["norm_w"].shape[-1], p["a_log"].shape[-1]
+        gn = (p["conv_w"].shape[-1] - di) // 2
+        hl, pd = h // 2, di // h
+        x = torch.arange(r * hl * pd, (r + 1) * hl * pd)
+        bc = torch.arange(2 * di, 2 * di + 2 * gn)
+        dt = torch.arange(2 * di + 2 * gn + r * hl, 2 * di + 2 * gn
+                          + (r + 1) * hl)
+        return torch.cat([x, di + x, bc, dt]), x
+
+    def _in_proj(self, p, x):
+        import torch
+        w = p["w_in"]
+        parts = [(cols.to(w.device), x @ w.index_select(-1, cols.to(
+            w.device))) for cols, _ in (self._ssm_cols(p, r)
+                                        for r in range(2))]
+        out = torch.empty(*x.shape[:-1], w.shape[-1], dtype=parts[0][1].dtype,
+                          device=x.device)
+        for cols, y in reversed(parts):      # rank 0's B and C columns
+            out[..., cols] = y
+        return out
+
+    def _gated_norm(self, cfg, p, y, z):
+        import torch
+        import torch.nn.functional as F
+        x = y * F.silu(z.float()).to(y.dtype)
+        sums = [(h.float() * h.float()).sum(-1, keepdim=True) for h in (
+            x[..., c].contiguous() for c in self._halves(x.shape[-1]))]
+        var = (sums[0] + sums[1]) / cfg.d_inner
+        return (x.float() * torch.rsqrt(var + cfg.rms_eps)).to(x.dtype) \
+            * p["norm_w"]
+
+    def _out_proj(self, cfg, p, y):
+        w = p["w_out"].to(y.dtype)
+        a, b = (y[..., c].contiguous() @ w[c]
+                for c in self._halves(w.shape[0]))
+        return a + b
+
+
+def batch_logits(model, toks, steps: int, attn_impl: str = "pallas",
+                 states=None):
     """The batch layout with the kernels (attn_impl "pallas"): prefill of
-    ``toks[:, :S]`` (K3), then ``steps`` decode steps of the next tokens,
-    teacher-forced (K1 with its write off, K4); with ``attn_impl="ref"``
-    the same on the plain paths.  Returns (the f32 logits of the prefill
-    and of every step over the real vocab, [1 + steps, B, V] on the host;
-    the collectives of the prefill and of the decode steps under a mesh
-    context)."""
+    ``toks[:, :S]`` (K3, K5), then ``steps`` decode steps of the next
+    tokens, teacher-forced (K1 with its write off, K4); with
+    ``attn_impl="ref"`` the same on the plain paths.  Returns (the f32
+    logits of the prefill and of every step over the real vocab, [1 +
+    steps, B, V] on the host; the collectives of the prefill and of the
+    decode steps under a mesh context).  ``states``, a tuple of period
+    indices, adds a third item: the prefill's first Mamba2 block's
+    ``conv`` and ``ssd`` states at those periods, on the host."""
     import torch
     from repro_torch.parallel import mesh_ctx
     cfg = dataclasses.replace(model.cfg, kv_layout="batch",
@@ -4973,6 +5231,10 @@ def batch_logits(model, toks, steps: int, attn_impl: str = "pallas"):
     mesh_ctx.reset_calls()
     logits, cache = m.prefill({"tokens": toks[:, :s]}, max_len=s + steps)
     calls = {"prefill": dict(mesh_ctx.CALLS)}
+    if states is not None:
+        block = next(v for v in cache.values() if "ssd" in v)
+        kept = {name: block[name][list(states)].cpu()
+                for name in ("conv", "ssd")}
     out = [logits[:, :cfg.vocab_size].cpu()]
     mesh_ctx.reset_calls()
     for k in range(steps):
@@ -4982,14 +5244,16 @@ def batch_logits(model, toks, steps: int, attn_impl: str = "pallas"):
                                       lengths)
         out.append(logits[:, :cfg.vocab_size].cpu())
     calls["decode"] = dict(mesh_ctx.CALLS)
+    if states is not None:
+        return torch.stack(out).numpy(), calls, kept
     return torch.stack(out).numpy(), calls
 
 
-def f32_model(cfg, dev, split: bool = False):
+def drawn_model(cfg, dev, split: bool = False, hold: str = "float32"):
     """``cfg``'s weights drawn in bf16 from seed 0 on ``dev`` and held in
-    f32 (the same values on one card and on every rank): the whole model,
-    or with ``split`` this rank's split form, the ranks drawing one after
-    another so that one whole bf16 draw is on the card at a time."""
+    ``hold`` (the same values on one card and on every rank): the whole
+    model, or with ``split`` this rank's split form, the ranks drawing one
+    after another so that one whole bf16 draw is on the card at a time."""
     import torch
     import torch.distributed as dist
     from repro_torch.models.model import Model
@@ -5004,6 +5268,8 @@ def f32_model(cfg, dev, split: bool = False):
             torch.cuda.empty_cache()
         if split:
             dist.barrier()
+    if hold == "bfloat16":
+        return model
     with torch.no_grad():
         for p in model.params.parameters():
             p.data = p.data.float()
@@ -5030,10 +5296,11 @@ def tp_counts():
 
 def tp_reset():
     from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.mamba2_ssd import kernel as K5
     from repro_torch.kernels.paged_decode import flash as K4
     from repro_torch.kernels.paged_decode import kernel as K
     from repro_torch.parallel import mesh_ctx
-    for mod in (K, K3, K4):
+    for mod in (K, K3, K4, K5):
         mod.reset_launch_counts()
     mesh_ctx.reset_calls()
 
@@ -5129,7 +5396,7 @@ def tp_rank(rank: int, workdir: str, device: str) -> None:
         torch.cuda.empty_cache()
         laps["bf16_step"] = time.monotonic() - t
         t = time.monotonic()
-        moe = f32_model(moe_cfg(), dev, split=True)
+        moe = drawn_model(moe_cfg(), dev, split=True)
         out["moe_weight_bytes_f32"] = weight_bytes(moe)
         out["moe"], out["moe_flips"] = {}, {}
         tp_reset()
@@ -5154,6 +5421,41 @@ def tp_rank(rank: int, workdir: str, device: str) -> None:
         mesh_ctx.clear_context()
         mesh_ctx.forget_groups()
         dist.destroy_process_group()
+
+
+def run_ranks(fn, phase: str, routing, dev) -> list:
+    """``fn(rank, workdir, str(dev))`` in TP_WORLD spawned processes on the
+    card, ``routing`` in ``workdir/routing.pkl`` for them to read, killed
+    past TP_TIMEOUT; returns what each saved as ``workdir/rank<r>.pkl``,
+    in rank order, and removes ``workdir``."""
+    import pickle
+    import shutil
+    import torch.multiprocessing as mp
+    workdir = os.path.join(ROOT, "build", f"{phase}_{os.getpid()}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    with open(os.path.join(workdir, "routing.pkl"), "wb") as f:
+        pickle.dump(routing, f)
+    handle = mp.start_processes(fn, args=(workdir, str(dev)),
+                                nprocs=TP_WORLD, join=False,
+                                start_method="spawn")
+    deadline = time.monotonic() + TP_TIMEOUT
+    try:
+        while not handle.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() >= deadline:
+                raise AssertionError(f"phase {phase}'s ranks outlived "
+                                     f"{TP_TIMEOUT} s")
+    finally:
+        for p in handle.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    ranks = []
+    for r in range(TP_WORLD):
+        with open(os.path.join(workdir, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    shutil.rmtree(workdir, ignore_errors=True)
+    return ranks
 
 
 def logits_close(got, want, what: str, failed: list,
@@ -5196,10 +5498,7 @@ def phase_tp_serve(dev):
     two orders, and the router's largest |score|.  Returns ({kernel:
     launches on the split form's paths, both ranks}, the max errors of
     (a), results)."""
-    import pickle
-    import shutil
     import torch
-    import torch.multiprocessing as mp
     from repro_torch.models.model import Model
     res, err = {"card": card()}, {"k2": 0.0}
     torch.cuda.empty_cache()
@@ -5222,7 +5521,7 @@ def phase_tp_serve(dev):
     torch.cuda.empty_cache()
     laps = res["one_card_laps_s"] = {"qwen3": time.monotonic() - t}
     t0 = time.monotonic()
-    moe = f32_model(moe_cfg(), dev)
+    moe = drawn_model(moe_cfg(), dev)
     laps["moe_draw"] = time.monotonic() - t0
     pin, plain_moe = PinnedRouting(), {}
     with pin:
@@ -5249,30 +5548,7 @@ def phase_tp_serve(dev):
     res["one_card_s"] = time.monotonic() - t
     # the ranks
     t = time.monotonic()
-    workdir = os.path.join(ROOT, "build", f"tp_serve_{os.getpid()}")
-    shutil.rmtree(workdir, ignore_errors=True)
-    os.makedirs(workdir)
-    with open(os.path.join(workdir, "routing.pkl"), "wb") as f:
-        pickle.dump(routing, f)
-    handle = mp.start_processes(tp_rank, args=(workdir, str(dev)),
-                                nprocs=TP_WORLD,
-                                join=False, start_method="spawn")
-    deadline = time.monotonic() + TP_TIMEOUT
-    try:
-        while not handle.join(timeout=max(deadline - time.monotonic(), 0.1)):
-            if time.monotonic() >= deadline:
-                raise AssertionError("phase tp_serve's ranks outlived "
-                                     f"{TP_TIMEOUT} s")
-    finally:
-        for p in handle.processes:
-            if p.is_alive():
-                p.kill()
-                p.join(5)
-    ranks = []
-    for r in range(TP_WORLD):
-        with open(os.path.join(workdir, f"rank{r}.pkl"), "rb") as f:
-            ranks.append(pickle.load(f))
-    shutil.rmtree(workdir, ignore_errors=True)
+    ranks = run_ranks(tp_rank, "tp_serve", routing, dev)
     res["ranks_s"] = time.monotonic() - t
     # (b) and (c) against one card
     r0, failed = ranks[0], []
@@ -5367,11 +5643,496 @@ def phase_tp_serve(dev):
     return launches, err, res
 
 
+# -- phase 24 ------------------------------------------------------------------
+
+#: phase tp_mixers: the split form of the Mamba2 mixers and of enc-dec over
+#: TP_WORLD gloo processes on the one card, a (1, 2) mesh, as phase
+#: tp_serve.  (a) mamba2-780m at full width and depth in f32: a prefill of
+#: B x S tokens through K5 on each rank's 24 of the 48 heads, then STEPS
+#: teacher-forced decode steps; the prefill's Mamba2 states compared at
+#: these layers
+TPM_MAMBA_BATCH, TPM_MAMBA_STEPS = (8, 512), 8
+TPM_STATE_LAYERS = (0, 47)
+#: (b) jamba-v0.1-52b at phase archs' depth (8 layers: one attention layer
+#: of 32 heads over 8 KV heads, 7 Mamba2 layers at N 16, 4 MoE layers of 16
+#: experts), bf16, drawn one rank at a time; the one card's expert choices
+#: pinned as in phase tp_serve (c) (TP_MOE_PINS); a prefill of B x S, then
+#: STEPS decode steps
+TPM_JAMBA = "jamba-v0.1-52b"
+TPM_JAMBA_BATCH, TPM_JAMBA_STEPS = (4, 32), 4
+#: (c) seamless-m4t-medium at full width in f32: prepare_cross_cache of
+#: phase encdec's ENCDEC_B x ENCDEC_SRC frames, then these teacher-forced
+#: decode steps
+TPM_ENCDEC_STEPS = 16
+
+
+def tpm_toks(dev, vocab: int, shape, steps: int, seed: int):
+    """Tokens [B, S + steps] drawn by numpy from ``seed`` on ``dev``."""
+    import torch
+    b, s = shape
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.integers(0, vocab, (b, s + steps)), device=dev)
+
+
+def tpm_jamba_cfg():
+    """(b)'s model: phase archs' jamba with a pool of one frame per page of
+    every slot (``mesh_step``'s scrambled tables)."""
+    return dataclasses.replace(arch_cfg(TPM_JAMBA), kv_pool_pages=None)
+
+
+def tpm_serve_cfg():
+    """(a)'s served model: mamba2-780m in f32 at CUT_LAYERS's depth."""
+    return mamba_cfg("float32", attn_impl="pallas",
+                     n_layers=CUT_LAYERS["mamba2-780m"])
+
+
+def tpm_trace(cfg) -> dict:
+    return dict(TP_TRACE, vocab_size=cfg.vocab_size)
+
+
+def encdec_logits(model, embeds, toks):
+    """``prepare_cross_cache`` of ``embeds``, then a teacher-forced decode
+    step for each column of ``toks`` [B, steps]: (the f32 logits over the
+    real vocab [steps, B, V] on the host; the collectives of the encoder
+    and of the decode steps under a mesh context)."""
+    import torch
+    from repro_torch.parallel import mesh_ctx
+    b, steps = toks.shape
+    mesh_ctx.reset_calls()
+    cache = model.prepare_cross_cache(embeds, model.init_cache(
+        b, steps, src_len=embeds.shape[1]))
+    calls = {"prefill": dict(mesh_ctx.CALLS)}
+    mesh_ctx.reset_calls()
+    out = []
+    for i in range(steps):
+        lengths = torch.full((b,), i + 1, dtype=torch.int32,
+                             device=toks.device)
+        logits, cache = model.decode_step(toks[:, i:i + 1], cache, lengths)
+        out.append(logits[:, :model.cfg.vocab_size].cpu())
+    calls["decode"] = dict(mesh_ctx.CALLS)
+    return torch.stack(out).numpy(), calls
+
+
+def tpm_inputs(dev) -> dict:
+    """The inputs of (a), (b) and (c), made from seeds, the same on one
+    card and on every rank."""
+    cfg = mamba_cfg("float32")
+    ecfg = encdec_cfg("float32")
+    return {"mamba": tpm_toks(dev, cfg.vocab_size, TPM_MAMBA_BATCH,
+                              TPM_MAMBA_STEPS, 53),
+            "jamba": tpm_toks(dev, tpm_jamba_cfg().vocab_size,
+                              TPM_JAMBA_BATCH, TPM_JAMBA_STEPS, 59),
+            "embeds": encdec_batch(ecfg, dev)["embeds"],
+            "encdec": tpm_toks(dev, ecfg.vocab_size, (ENCDEC_B, 0),
+                               TPM_ENCDEC_STEPS, 61)}
+
+
+def tpm_counts() -> dict:
+    """K1-K5's launches since the last ``tp_reset``, by the kernels line's
+    names."""
+    from repro_torch.kernels.mamba2_ssd import kernel as K5
+    names = {name for name, *_ in KERNELS}
+    launches = {**tp_counts()[0], **K5.LAUNCHES}
+    return {k: v for k, v in launches.items() if k in names}
+
+
+def tp_mixers_rank(rank: int, workdir: str, device: str) -> None:
+    """One of the TP_WORLD processes of phase tp_mixers: a gloo group over
+    a ``file://`` store in ``workdir``, the (1, 2) mesh context, and on
+    the card (a) mamba2-780m's split form in f32 (the batch layout's
+    prefill and decode at full depth with its states, the engine trace at
+    CUT_LAYERS's depth), in bf16 one profiled decode step; (b) jamba's
+    split form in bf16 under both pinnings, then one profiled pooled decode
+    step (K1, K2); (c) seamless's split form in f32.  Saves what it saw as
+    ``rank<r>.pkl``; the group is destroyed at the end."""
+    import pickle
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.parallel import mesh_ctx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    torch.cuda.set_device(dev.index or 0)
+    init_process_group("cpu", rank=rank, world_size=TP_WORLD,
+                       init_method=f"file://{workdir}/store")
+    out = {"rank": rank}
+    laps = out["laps_s"] = {}
+    try:
+        with open(os.path.join(workdir, "routing.pkl"), "rb") as f:
+            routing = pickle.load(f)
+        mesh_ctx.set_context(make_mesh((1, TP_WORLD), ("data", "model"),
+                                       "cpu"))
+        x = tpm_inputs(dev)
+        # (a) mamba2-780m
+        t = time.monotonic()
+        model = Model(mamba_cfg("float32"), device=dev, seed=0).shard()
+        torch.cuda.empty_cache()
+        out["shard"] = model.tp_shard
+        out["mamba_weight_bytes_f32"] = weight_bytes(model)
+        tp_reset()
+        out["mamba"], out["mamba_calls"], out["mamba_states"] = batch_logits(
+            model, x["mamba"], TPM_MAMBA_STEPS, states=TPM_STATE_LAYERS)
+        out["mamba_launches"] = tpm_counts()
+        del model
+        torch.cuda.empty_cache()
+        laps["mamba"] = time.monotonic() - t
+        t = time.monotonic()
+        cfg = tpm_serve_cfg()
+        tp_reset()
+        outputs, stats, serve_s = serve_model(
+            dev, cfg, SSM_SERVE_ENGINE, tpm_trace(cfg),
+            model=Model(cfg, device=dev, seed=0).shard())
+        out["mamba_serve"] = {"outputs": outputs, "serve_s": serve_s,
+                              "decode_steps": stats["decode_steps"],
+                              "collectives": tp_counts()[1],
+                              "launches": tpm_counts()}
+        m16 = Model(mamba_cfg("bfloat16"), device=dev, seed=0).shard()
+        torch.cuda.empty_cache()
+        out["mamba_weight_bytes_bf16"] = weight_bytes(m16)
+        out["mamba_step_bf16"] = mesh_step(dev, m16, TP_PROFILE_STEPS)
+        del m16
+        torch.cuda.empty_cache()
+        laps["mamba_serve_and_step"] = time.monotonic() - t
+        # (b) jamba-v0.1-52b, bf16
+        t = time.monotonic()
+        jamba = drawn_model(tpm_jamba_cfg(), dev, split=True,
+                            hold="bfloat16")
+        out["jamba_weight_bytes"] = weight_bytes(jamba)
+        laps["jamba_draw"] = time.monotonic() - t
+        t = time.monotonic()
+        out["jamba"], out["jamba_flips"] = {}, {}
+        tp_reset()
+        for mode in TP_MOE_PINS:
+            pin = PinnedRouting()
+            pin.ids = [i.to(dev) for i, _ in routing]
+            pin.weights = [w.to(dev) for _, w in routing]
+            with pin:
+                pin.start(mode)
+                out["jamba"][mode], out["jamba_calls"] = batch_logits(
+                    jamba, x["jamba"], TPM_JAMBA_STEPS)
+            out["jamba_flips"][mode] = f"{pin.flips}/{pin.routed}"
+        out["jamba_launches"] = tpm_counts()
+        tp_reset()
+        out["jamba_step"] = mesh_step(dev, jamba, TP_PROFILE_STEPS)
+        out["jamba_step_launches"] = tpm_counts()
+        del jamba
+        torch.cuda.empty_cache()
+        laps["jamba"] = time.monotonic() - t
+        # (c) seamless-m4t-medium, f32
+        t = time.monotonic()
+        model = Model(encdec_cfg("float32"), device=dev, seed=0).shard()
+        torch.cuda.empty_cache()
+        out["encdec_weight_bytes_f32"] = weight_bytes(model)
+        tp_reset()
+        out["encdec"], out["encdec_calls"] = encdec_logits(
+            model, x["embeds"], x["encdec"])
+        out["encdec_launches"] = tpm_counts()
+        del model, x
+        torch.cuda.empty_cache()
+        laps["encdec"] = time.monotonic() - t
+        with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        mesh_ctx.clear_context()
+        mesh_ctx.forget_groups()
+        dist.destroy_process_group()
+
+
+def tpm_rank_ssm(states, rank: int, cfg) -> dict:
+    """The one card's Mamba2 states (``conv`` [L, B, K-1, di + 2GN], ``ssd``
+    [L, B, H, N, P]) cut to tp rank ``rank``'s of TP_WORLD: its x channels
+    and every B/C channel, its heads (G 1: its heads read the one group)."""
+    hl, pd = cfg.ssm_heads // TP_WORLD, cfg.ssm_head_dim
+    x = np.arange(rank * hl * pd, (rank + 1) * hl * pd)
+    bc = np.arange(cfg.d_inner, states["conv"].shape[-1])
+    return {"conv": states["conv"][..., np.r_[x, bc]].numpy(),
+            "ssd": states["ssd"][:, :, rank * hl:(rank + 1) * hl].numpy()}
+
+
+def phase_tp_mixers(dev):
+    """The split form of the Mamba2 mixers and of enc-dec on the card, over
+    TP_WORLD processes (gloo, a (1, 2) mesh, tp 2).  Kernels at a rank's
+    shapes: K5 on mamba2's 24 heads (f32, bf16) and jamba's 64 at N 16
+    (bf16), K1 + K2 on jamba's 16 query heads over its 4 KV heads.  (a)
+    mamba2-780m at full width and depth in f32: the batch layout's prefill
+    (K5 on the rank's heads) and teacher-forced decode logits, and the
+    prefill's conv and SSD states of TPM_STATE_LAYERS on the rank's
+    channels and heads, each within TP_LOGIT_RTOL of one card's or, where
+    larger, ORDER_FACTOR times one card's own disagreement between its
+    kernels and its plain path (``attn_impl="ref"``); the engine trace's
+    greedy tokens at CUT_LAYERS's depth equal one card's; per-rank weight
+    bytes, collectives a decode step, one bf16 decode step's wall and
+    device ms per rank beside one card's.  (b) jamba at 8 layers in bf16
+    with the one card's expert choices pinned, then their weights too: the
+    logits against the one card computing in the two ranks' shapes
+    (TwoRankOrder), each within TP_LOGIT_RTOL or ORDER_FACTOR times one
+    card's own kernels-against-plain gap under the same pinning, the gap
+    to the plain one card reported; one profiled pooled step (K1, K2 on
+    the rank's heads).  (c) seamless-m4t-medium at full
+    width in f32: ``prepare_cross_cache`` of 8 x 512 frames and 16
+    teacher-forced decode steps, gated as (a)'s logits.  Beside (a) and
+    (c), their distance to the one card computing in the two ranks'
+    shapes (TwoRankOrder).  Every rank's logits the same.  Returns ({kernel: launches on the split
+    form's paths, both ranks}, max errors, results)."""
+    import torch
+    from repro_torch.models.model import Model
+    res, err = {"card": card()}, {"k5": 0.0, "k5_state": 0.0, "k2": 0.0}
+    torch.cuda.empty_cache()
+    t = time.monotonic()
+    # the kernels at a rank's shapes
+    mcfg, jcfg = mamba_cfg("float32"), tpm_jamba_cfg()
+    variants = {}
+    for name, dtype, c, seed in (("mamba2", torch.float32, mcfg, 61),
+                                 ("mamba2", torch.bfloat16, mcfg, 62),
+                                 ("jamba", torch.bfloat16, jcfg, 63)):
+        h = c.ssm_heads // TP_WORLD
+        args = ssd_case(seed, dtype, dev, TPM_MAMBA_BATCH[0],
+                        TPM_MAMBA_BATCH[1], h, c.ssm_head_dim, c.ssm_state,
+                        c.ssm_groups)
+        variants[f"{name} {str(dtype)[6:]} H {h} N {c.ssm_state}"] = \
+            check_k5(args, c.ssd_chunk, err)
+    res["k5_rank_shapes"] = variants
+    hl, g = jcfg.n_heads // TP_WORLD, jcfg.n_heads // jcfg.n_kv_heads
+    x = kernel_case(64, torch.bfloat16, dev, g=g, d=jcfg.hd)
+    for index in range(TP_WORLD):
+        split_group_case(x, hl, index * hl, None, err,
+                         f"jamba bf16 heads [{index * hl}, {(index + 1) * hl})")
+    del x
+    res["rank_kernels_s"] = time.monotonic() - t
+    inputs = tpm_inputs(dev)
+    # (a) one card, f32 at full depth: the kernels and the plain path
+    t = time.monotonic()
+    one = {}
+    model = Model(mcfg, device=dev, seed=0)
+    res["mamba_one_card_weight_bytes_f32"] = weight_bytes(model)
+    for impl in ("pallas", "ref"):
+        one[f"mamba_{impl}"] = batch_logits(
+            model, inputs["mamba"], TPM_MAMBA_STEPS, attn_impl=impl,
+            states=TPM_STATE_LAYERS)
+    with TwoRankOrder():
+        one["mamba_two_order"], _ = batch_logits(model, inputs["mamba"],
+                                                 TPM_MAMBA_STEPS)
+    del model
+    torch.cuda.empty_cache()
+    cut = tpm_serve_cfg()
+    one_tokens, one_stats, one_s = serve_model(dev, cut, SSM_SERVE_ENGINE,
+                                               tpm_trace(cut))
+    m16 = Model(mamba_cfg("bfloat16"), device=dev, seed=0)
+    res["mamba_one_card_weight_bytes_bf16"] = weight_bytes(m16)
+    res["mamba_one_card_step_bf16"] = mesh_step(dev, m16, TP_PROFILE_STEPS)
+    del m16
+    torch.cuda.empty_cache()
+    laps = res["one_card_laps_s"] = {"mamba": time.monotonic() - t}
+    # (b) one card, bf16: expert choices recorded on the kernels, the
+    # plain path under each pinning
+    t = time.monotonic()
+    jamba = drawn_model(jcfg, dev, hold="bfloat16")
+    res["jamba_one_card_weight_bytes"] = weight_bytes(jamba)
+    pin, plain_j = PinnedRouting(), {}
+    with pin:
+        pin.start("record")
+        one["jamba"], _ = batch_logits(jamba, inputs["jamba"],
+                                       TPM_JAMBA_STEPS)
+        two_order_j = {}
+        for mode in TP_MOE_PINS:
+            pin.start(mode)
+            plain_j[mode], _ = batch_logits(jamba, inputs["jamba"],
+                                            TPM_JAMBA_STEPS, attn_impl="ref")
+            pin.start(mode)
+            with TwoRankOrder():
+                two_order_j[mode], _ = batch_logits(jamba, inputs["jamba"],
+                                                    TPM_JAMBA_STEPS)
+    routing = [(i.cpu(), w.cpu()) for i, w in zip(pin.ids, pin.weights)]
+    res["jamba_router_score_max"] = pin.score_max.item()
+    res["jamba_one_card_step"] = mesh_step(dev, jamba, TP_PROFILE_STEPS)
+    del jamba, pin
+    torch.cuda.empty_cache()
+    laps["jamba"] = time.monotonic() - t
+    # (c) one card, f32
+    t = time.monotonic()
+    model = Model(encdec_cfg("float32"), device=dev, seed=0)
+    res["encdec_one_card_weight_bytes_f32"] = weight_bytes(model)
+    one["encdec"], _ = encdec_logits(model, inputs["embeds"],
+                                     inputs["encdec"])
+    one["encdec_plain"], _ = encdec_logits(
+        model.with_config(dataclasses.replace(model.cfg, attn_impl="ref")),
+        inputs["embeds"], inputs["encdec"])
+    with TwoRankOrder():
+        one["encdec_two_order"], _ = encdec_logits(model, inputs["embeds"],
+                                                   inputs["encdec"])
+    del model, inputs
+    torch.cuda.empty_cache()
+    laps["encdec"] = time.monotonic() - t
+    # the ranks
+    t = time.monotonic()
+    ranks = run_ranks(tp_mixers_rank, "tp_mixers", routing, dev)
+    res["ranks_s"] = time.monotonic() - t
+    r0, failed = ranks[0], []
+    for o in ranks:
+        for key, a, b in [("mamba2", o["mamba"], r0["mamba"]),
+                          ("seamless", o["encdec"], r0["encdec"])] + [
+                (f"jamba {m}", o["jamba"][m], r0["jamba"][m])
+                for m in TP_MOE_PINS]:
+            if not np.array_equal(a, b):
+                failed.append(f"{key} logits differ between ranks")
+        if o["mamba_serve"]["outputs"] != one_tokens:
+            bad = sorted(u for u in one_tokens
+                         if one_tokens[u] != o["mamba_serve"]["outputs"].get(u))
+            failed.append(f"rank {o['rank']}: mamba2 split-form tokens "
+                          f"differ from one card's for {bad}")
+
+    def rel(a, b):
+        return float(np.abs(np.asarray(a) - np.asarray(b)).max()
+                     / np.abs(np.asarray(b)).max())
+    # (a): logits and states against one card, each gate bounded below by
+    # one card's own kernels-against-plain disagreement
+    kern, plain = one["mamba_pallas"], one["mamba_ref"]
+    order = rel(plain[0], kern[0])
+    res["mamba"] = logits_close(r0["mamba"], kern[0], "mamba2-780m f32",
+                                failed, rtol=max(TP_LOGIT_RTOL,
+                                                 ORDER_FACTOR * order))
+    res["mamba"].update(
+        plain_rel=order,
+        two_rank_order_rel=rel(r0["mamba"], one["mamba_two_order"]),
+        two_rank_order_vs_one_card_rel=rel(one["mamba_two_order"], kern[0]))
+    res["mamba_states"] = {}
+    for o in ranks:
+        want = tpm_rank_ssm(kern[2], o["rank"], mcfg)
+        base = tpm_rank_ssm(plain[2], o["rank"], mcfg)
+        for name in ("conv", "ssd"):
+            for i, layer in enumerate(TPM_STATE_LAYERS):
+                w = want[name][i]
+                got = o["mamba_states"][name][i].numpy()
+                floor = rel(base[name][i], w)
+                lim = max(TP_LOGIT_RTOL, ORDER_FACTOR * floor)
+                r = rel(got, w)
+                res["mamba_states"][f"rank {o['rank']} {name} {layer}"] = {
+                    "rel": r, "limit": lim, "plain_rel": floor}
+                if not np.isfinite(got).all() or r > lim:
+                    failed.append(f"rank {o['rank']} mamba2 {name} state of "
+                                  f"layer {layer}: {r} > {lim}")
+    # (b): under each pinning against the one card computing in the two
+    # ranks' shapes (TwoRankOrder: in bf16 each rank rounds its partial
+    # products before the sum, which only that order reproduces), the gate
+    # bounded below by the one card's own kernels-against-plain gap under
+    # that pinning; beside it the split form and TwoRankOrder against the
+    # plain one card
+    res["jamba"] = {}
+    for mode in TP_MOE_PINS:
+        order = rel(plain_j[mode], one["jamba"])
+        res["jamba"][mode] = logits_close(
+            r0["jamba"][mode], two_order_j[mode], f"{TPM_JAMBA} {mode}",
+            failed, rtol=max(TP_LOGIT_RTOL, ORDER_FACTOR * order))
+        res["jamba"][mode].update(
+            plain_rel=order, routing_flips=r0["jamba_flips"][mode],
+            split_vs_one_card_rel=rel(r0["jamba"][mode], one["jamba"]),
+            two_rank_order_vs_one_card_rel=rel(two_order_j[mode],
+                                               one["jamba"]))
+    # (c), its gate bounded below as (a)'s
+    order = rel(one["encdec_plain"], one["encdec"])
+    res["encdec"] = logits_close(r0["encdec"], one["encdec"],
+                                 "seamless-m4t-medium f32", failed,
+                                 rtol=max(TP_LOGIT_RTOL, ORDER_FACTOR * order))
+    res["encdec"].update(
+        plain_rel=order,
+        two_rank_order_rel=rel(r0["encdec"], one["encdec_two_order"]),
+        two_rank_order_vs_one_card_rel=rel(one["encdec_two_order"],
+                                           one["encdec"]))
+    # collectives a decode step: 2 a Mamba2 layer, 1 an attention layer, 1
+    # a layer with an MLP or MoE, 3 a seamless decoder layer; the
+    # embedding's all_reduce and the logits' all_gather
+    ecfg = encdec_cfg("float32")
+
+    def per_step(calls, steps):
+        return {k: v / steps for k, v in calls.items()}
+    want_calls = {
+        "mamba": (2 * mcfg.n_layers + 1, TPM_MAMBA_STEPS, r0["mamba_calls"]),
+        "jamba": (2 * 7 + 1 + 8 + 1, TPM_JAMBA_STEPS, r0["jamba_calls"]),
+        "encdec": (3 * ecfg.n_layers + 1, TPM_ENCDEC_STEPS,
+                   r0["encdec_calls"])}
+    res["collectives_per_step"] = {}
+    for key, (reduce, steps, calls) in want_calls.items():
+        got = per_step(calls["decode"], steps)
+        res["collectives_per_step"][key] = got
+        if got != {"all_to_all": 0, "all_reduce": reduce, "all_gather": 1}:
+            failed.append(f"{key} collectives a decode step {got}, not "
+                          f"{reduce} all_reduce and 1 all_gather")
+    res["mamba_serve_collectives_per_step"] = per_step(
+        r0["mamba_serve"]["collectives"], r0["mamba_serve"]["decode_steps"])
+    res["jamba_step_collectives"] = r0["jamba_step"]["collectives"]
+    # launches: K5 once a Mamba2 layer a prefill; jamba's attention layer
+    # K3 once a prefill and K1 (write off) + K4 once a decode step under
+    # each pinning, its pooled steps K1 + K2; seamless K3 once an encoder
+    # layer and once a decoder layer a step, K1 + K4 once a decoder layer a
+    # step
+    n_pin = len(TP_MOE_PINS)
+    want_launch = {
+        "mamba_launches": {"ssd": mcfg.n_layers},
+        "jamba_launches": {"ssd": 7 * n_pin, "flash_attention": n_pin,
+                           "flash_decode": TPM_JAMBA_STEPS * n_pin,
+                           "paged_kv_write": TPM_JAMBA_STEPS * n_pin,
+                           "paged_gather_attend": 0},
+        "encdec_launches": {
+            "flash_attention": ecfg.n_encoder_layers
+            + ecfg.n_layers * TPM_ENCDEC_STEPS,
+            "flash_decode": ecfg.n_layers * TPM_ENCDEC_STEPS,
+            "paged_kv_write": ecfg.n_layers * TPM_ENCDEC_STEPS,
+            "ssd": 0}}
+    launches = {name: 0 for name, *_ in KERNELS}
+    for o in ranks:
+        for key, want in want_launch.items():
+            got = {k: o[key].get(k, 0) for k in want}
+            if got != want:
+                failed.append(f"rank {o['rank']} {key} {got}, not {want}")
+        step = o["jamba_step_launches"]
+        if not step["paged_kv_write"] == step["paged_gather_attend"] > 0:
+            failed.append(f"rank {o['rank']} jamba pooled step launches "
+                          f"{step}")
+        for key in ("mamba_launches", "jamba_launches", "encdec_launches",
+                    "jamba_step_launches"):
+            for k, n in o[key].items():
+                launches[k] += n
+    res.update(
+        mamba_serve={"requests": len(one_tokens),
+                     "decode_steps": r0["mamba_serve"]["decode_steps"],
+                     "reduced": reduced("mamba2-780m"),
+                     "one_card_decode_steps": one_stats["decode_steps"],
+                     "one_card_serve_s": one_s,
+                     "rank_serve_s": [o["mamba_serve"]["serve_s"]
+                                      for o in ranks]},
+        weight_bytes={k: [o[k] for o in ranks] for k in (
+            "mamba_weight_bytes_f32", "mamba_weight_bytes_bf16",
+            "jamba_weight_bytes", "encdec_weight_bytes_f32")},
+        mamba_step_bf16=[{k: o["mamba_step_bf16"][k] for k in (
+            "wall_ms", "device_ms", "device_ops", "collectives")}
+            for o in ranks],
+        jamba_step=[{k: o["jamba_step"][k] for k in (
+            "wall_ms", "device_ms", "device_ops")} for o in ranks],
+        launches=launches, rank_laps_s=[o["laps_s"] for o in ranks],
+        max_abs_err=err)
+    print(f"tp_mixers ({res['card']}): per-rank weights "
+          f"{res['weight_bytes']} B (one card mamba2 bf16 "
+          f"{res['mamba_one_card_weight_bytes_bf16']}, jamba "
+          f"{res['jamba_one_card_weight_bytes']}); collectives a decode "
+          f"step {res['collectives_per_step']}; bf16 mamba2 step per rank "
+          f"wall / device ms "
+          f"{[(s['wall_ms'], s['device_ms']) for s in res['mamba_step_bf16']]}"
+          f" (one card {res['mamba_one_card_step_bf16']['wall_ms']} / "
+          f"{res['mamba_one_card_step_bf16']['device_ms']}); K1-K5 launches "
+          f"{launches}", flush=True)
+    if failed:
+        emit({"phase": "tp_mixers", "failed": failed, **res})
+        raise AssertionError(f"phase tp_mixers failed: {failed}")
+    return launches, err, res
+
+
 # -- main -----------------------------------------------------------------------
 
 PHASES = ("build,kernels,teacher,profile,serve,tokens,flash,prefill,batch,"
           "ssd,ssm_prefill,ssm_serve,gather,emem,vm,mesh,vm_bench,archs,"
-          "encdec,train,mesh_train,paper,dryrun,tp_serve")
+          "encdec,train,mesh_train,paper,dryrun,tp_serve,tp_mixers")
 #: the kernels' libraries, sources and the TPU kernels they replace
 KERNELS = (
     ("paged_kv_write", "k1", "src/repro_torch/kernels/paged_decode/csrc/"
@@ -5540,6 +6301,7 @@ def main(argv=None) -> int:
         for arch in args.archs.split(","):
             # each arch runs even when one before it failed; the phase
             # fails after the last
+            torch.cuda.empty_cache()
             t = time.monotonic()
             try:
                 arch_launches, res = phase_arch(dev, arch)
@@ -5577,6 +6339,14 @@ def main(argv=None) -> int:
             launches[name] += n
         emit({"phase": "tp_serve", "seconds": time.monotonic() - t,
               "max_abs_err": e, **res})
+    if "tp_mixers" in phases:
+        t = time.monotonic()
+        tpm_launches, e, res = phase_tp_mixers(dev)
+        for key in ("k2", "k5", "k5_state"):
+            err[key] = max(err.get(key, 0.0), e[key])
+        for name, n in tpm_launches.items():
+            launches[name] += n
+        emit({"phase": "tp_mixers", "seconds": time.monotonic() - t, **res})
 
     def ms(key):
         # the device time of timed(); the event-timed loop where neither

@@ -19,9 +19,8 @@ through the port's own paths on ``meta`` tensors, shapes without storage:
                rank's block of pages.
 
 A serve step runs on the rank's shards of the weights (``Model.shard``,
-the tensor-parallel split form: its heads, MLP columns, experts and vocab
-block over "model") for every arch that has one; the SSM mixers and
-enc-dec, which have none yet, run on whole weights.
+the tensor-parallel split form: its attention heads, MLP columns,
+experts, Mamba2 heads and vocab block over "model"), every arch alike.
 
 The rank's rows are the global batch split over the data axes, or the
 whole batch where it does not split (the reference's replicated batch).
@@ -74,7 +73,7 @@ from repro_torch.launch import hlo_analysis as H
 from repro_torch.launch.mesh import (dp_axes, end_fake_group,
                                      make_production_mesh, mesh_shape,
                                      start_fake_group)
-from repro_torch.models.model import Model, has_split_form
+from repro_torch.models.model import Model
 from repro_torch.optim import adamw
 from repro_torch.parallel import mesh_ctx
 from repro_torch.train import trainer as trainer_mod
@@ -145,18 +144,17 @@ def build_step(cfg, shape: ShapeSpec, specs: dict, mesh, dp: tuple,
     tensors: ``(run, resident, extra)`` -- ``run()`` takes the step,
     ``resident`` holds what the rank keeps across steps (weights, state,
     cache, batch), ``extra`` the record's fields.  A serve step (prefill,
-    decode) runs on the rank's shards of the weights where the arch has a
-    split form (``Model.shard``: its heads, MLP columns, experts, vocab
-    block over "model"); on a mesh whose "model" axis has one rank
-    nothing splits.  Installs the mesh context; the caller clears it."""
+    decode) runs on the rank's shards of the weights (``Model.shard``:
+    its heads, MLP columns, experts, SSM heads, vocab block over
+    "model"); on a mesh whose "model" axis has one rank nothing splits.
+    Installs the mesh context; the caller clears it."""
     model = Model(cfg, device="meta")
     mesh_ctx.set_context(mesh, batch_axes=dp, tp_axis="model", kv_axes=dp)
     n_dp = _dp_size(mesh, dp)
     rows = _rows(shape.global_batch, n_dp)
     batch = {k: _meta(v, rows) for k, v in specs.items()}
     extra = {"params": model.param_count(), "rows_per_rank": rows}
-    if shape.kind != "train" and has_split_form(cfg) \
-            and mesh_shape(mesh)["model"] > 1:
+    if shape.kind != "train" and mesh_shape(mesh)["model"] > 1:
         model = model.shard()
     extra["split_form"] = model.tp_shard is not None
     if shape.kind == "train":

@@ -16,7 +16,12 @@ the reference wraps its layer step in ``jax.checkpoint``.
 Serving: :func:`prepare_cross_cache` runs the encoder once and fills the
 cross-attention K/V; :func:`decode_step` then takes one decoder token for
 every sequence on the batch KV layout.  The reference does not serve
-enc-dec through its engine, and neither does the port.
+enc-dec through its engine, and neither does the port.  A tensor-parallel
+rank's split form (:meth:`repro_torch.models.model.Model.shard`) holds
+its heads of the encoder's, the self- and the cross-attention, its MLP
+columns and its vocab block; its caches hold its KV heads
+(:func:`local_kv_heads`), and a decoder layer sums three row-parallel
+products over tp (self- and cross-attention ``wo``, ``w_down``).
 """
 from __future__ import annotations
 
@@ -127,14 +132,23 @@ def lm_loss(cfg: ModelConfig, params, batch: dict,
 # ---------------------------------------------------------------------------
 # Serving: cached cross-attention K/V + self-attention KV cache
 # ---------------------------------------------------------------------------
+def local_kv_heads(cfg: ModelConfig, params) -> int:
+    """The KV heads the decoder's attention weights hold: the config's, or
+    a tensor-parallel rank's whole-head shard of them."""
+    return L.local_heads(cfg, params["dec"]["self_attn"])[1]
+
+
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
-               src_len: int, device, dtype=None) -> dict:
+               src_len: int, device, dtype=None,
+               n_kv_heads: int | None = None) -> dict:
     """Zero cache: self-attention ``k``/``v`` [n_layers, B, Hkv, max_len,
     hd] and cross-attention ``xk``/``xv`` [n_layers, B, Hkv, src_len, hd],
-    in the compute dtype unless ``dtype`` is given."""
+    in the compute dtype unless ``dtype`` is given; ``n_kv_heads`` (a
+    tensor-parallel rank's, :func:`local_kv_heads`) in place of
+    ``cfg.n_kv_heads`` where given."""
     T.check_supported(cfg)
     dt = torch_dtype(dtype or cfg.compute_dtype)
-    nl, hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    nl, hkv, hd = cfg.n_layers, n_kv_heads or cfg.n_kv_heads, cfg.hd
 
     def zeros(s):
         return torch.zeros((nl, batch_size, hkv, s, hd), dtype=dt,

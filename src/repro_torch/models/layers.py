@@ -12,9 +12,10 @@ derive the sharding rules' inputs.
 A tensor-parallel rank's split form holds its own shards of these tables
 (:func:`repro_torch.parallel.sharding.tp_shard_params`): every block reads
 its head, column and vocab counts from the weights it holds, and where
-they are a shard it sums its row-parallel output (``wo``, ``w_down``), its
-embedding, or gathers its logits over the mesh context's tp group.  Whole
-weights compute as on one device, under a context or not.
+they are a shard it sums its row-parallel output (``wo`` of self- and
+cross-attention, ``w_down``), its embedding, or gathers its logits over
+the mesh context's tp group.  Whole weights compute as on one device,
+under a context or not.
 
 Logical axis names (the reference's):
   "layers"   -- stacked layer-period dimension
@@ -75,7 +76,9 @@ class ParamDef:
         std = self.scale if self.scale is not None else fan_in ** -0.5
         x = torch.randn(self.shape, generator=gen, dtype=torch.float32,
                         device=device)
-        return (x * std).to(dtype)
+        # scaled in place: a stacked expert table's f32 draw is twice its
+        # bf16 size, and one more copy of it need not fit beside the model
+        return x.mul_(std).to(dtype)
 
 
 def _map_defs(fn, defs: dict) -> dict:
@@ -184,15 +187,17 @@ def attention_out(cfg: ModelConfig, p, out: torch.Tensor) -> torch.Tensor:
     return row_parallel_sum([(out @ wo, wo.shape[0], cfg.n_heads * cfg.hd)])
 
 
+def project(cfg: ModelConfig, p, name: str, x: torch.Tensor) -> torch.Tensor:
+    """``x @ w<name>`` for ``name`` "q", "k" or "v", bias added where the
+    config has one: the heads ``p`` holds."""
+    y = x @ p["w" + name]
+    return y + p["b" + name] if cfg.qkv_bias else y
+
+
 def qkv_projections(cfg: ModelConfig, p, x: torch.Tensor):
     """The projections of :func:`project_qkv`: x [B, S, d] -> q
     [B, S, H * hd], k/v [B, S, Hkv * hd], bias added."""
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return q, k, v
+    return tuple(project(cfg, p, name, x) for name in "qkv")
 
 
 def qk_epilogue(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
@@ -350,30 +355,26 @@ def cross_attention_block(cfg: ModelConfig, p, x: torch.Tensor,
                           kv_cache) -> torch.Tensor:
     """Decoder cross-attention against precomputed encoder K/V (no rotary
     on q or k, as in the reference).  x: [B, S, d]; kv_cache: (k, v) of
-    [B, Hkv, S_src, hd].  Non-causal, no window: under ``"pallas"`` it is
-    K3 with the queries taking every source position, Sq > S_src
+    [B, Hkv, S_src, hd] (the heads ``p`` holds, a tensor-parallel rank's
+    included: its ``wo`` rows then give a partial sum, summed by
+    :func:`attention_out`).  Non-causal, no window: under ``"pallas"`` it
+    is K3 with the queries taking every source position, Sq > S_src
     included."""
     b, s, _ = x.shape
-    q = x @ p["wq"]
-    if cfg.qkv_bias:
-        q = q + p["bq"]
-    q = q.reshape(b, s, cfg.n_heads, cfg.hd).transpose(1, 2)
+    h = local_heads(cfg, p)[0]
+    q = project(cfg, p, "q", x).reshape(b, s, h, cfg.hd).transpose(1, 2)
     k, v = kv_cache
     out = full_attention(cfg, q, k, v, causal=False, window=None)
-    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
-    return out @ p["wo"]
+    return attention_out(cfg, p, out.transpose(1, 2).reshape(b, s, h * cfg.hd))
 
 
 def encode_kv(cfg: ModelConfig, p, enc_out: torch.Tensor):
-    """Cross-attention K/V [B, Hkv, S_src, hd] from encoder states."""
+    """Cross-attention K/V [B, Hkv, S_src, hd] from encoder states (the KV
+    heads ``p`` holds)."""
     b, s, _ = enc_out.shape
-    k = enc_out @ p["wk"]
-    v = enc_out @ p["wv"]
-    if cfg.qkv_bias:
-        k, v = k + p["bk"], v + p["bv"]
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
-    return k, v
+    hkv = local_heads(cfg, p)[1]
+    return tuple(project(cfg, p, name, enc_out).reshape(
+        b, s, hkv, cfg.hd).transpose(1, 2) for name in "kv")
 
 
 def decode_attention_block(cfg: ModelConfig, p, x: torch.Tensor,

@@ -13,11 +13,12 @@ prefill and decode run without gradients.  Training turns them on
 which indexes the stacked weights afresh with grad on; an optimizer step
 writes the parameters in place, so the cached serving views stay valid.
 
-:meth:`Model.shard` gives the tensor-parallel split form: a model over one
-rank's shards of the weights under the installed mesh context (its heads,
-MLP columns, experts and vocab block; ``tp_only``), which serves through
-the same entry points with one collective after each row-parallel
-product.  A model of whole weights under a context computes on them whole,
+:meth:`Model.shard` gives the tensor-parallel split form of every arch: a
+model over one rank's shards of the weights under the installed mesh
+context (its attention heads, MLP columns, experts, SSM heads and vocab
+block; ``tp_only``), which serves through the same entry points with one
+collective after each row-parallel product and one in each Mamba2 gated
+norm.  A model of whole weights under a context computes on them whole,
 as before.
 """
 from __future__ import annotations
@@ -54,13 +55,6 @@ def _build(defs: dict, gen: torch.Generator, dtype, device) -> nn.Module:
             else nn.Parameter(defs[k].initialize(gen, dtype, device),
                               requires_grad=False))
         for k in sorted(defs)})
-
-
-def has_split_form(cfg: ModelConfig) -> bool:
-    """Whether :meth:`Model.shard` splits ``cfg``: the attention decoders
-    (dense, MoE, the frontend stubs); not the SSM mixers or enc-dec."""
-    return not T.is_encdec(cfg) and all(cfg.layer_kind(i) == "attn"
-                                        for i in range(cfg.layer_period))
 
 
 def _rebuild(module, tree: dict) -> nn.Module:
@@ -160,11 +154,12 @@ class Model(nn.Module):
         of these weights, split over the installed mesh context's tp axis
         as ``tp_only`` splits them
         (:func:`repro_torch.parallel.sharding.tp_shard_params`: whole
-        heads, MLP columns, experts or their columns, the vocab block; what
-        tp does not divide stays whole).  It serves through the same entry
-        points and gives every rank the same logits.  Decoders without
-        Mamba2 layers only: the SSM mixers and enc-dec have no split form
-        yet (NotImplementedError)."""
+        attention heads, MLP columns, experts or their columns, Mamba2
+        heads with their channels and state, the vocab block; what tp does
+        not divide stays whole), for decoders and enc-dec alike.  It serves
+        through the same entry points and gives every rank the same
+        logits.  Raises without a context, and on a model that is already
+        the split form."""
         ctx = mesh_ctx.get_context()
         if ctx is None:
             raise RuntimeError("Model.shard splits over the installed mesh "
@@ -172,11 +167,6 @@ class Model(nn.Module):
         if self.tp_shard is not None:
             raise ValueError(f"already the split form {self.tp_shard}")
         cfg = self.cfg
-        if not has_split_form(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: the tensor-parallel split form covers the "
-                "attention decoders (dense and MoE); not the SSM mixers or "
-                "enc-dec")
         with torch.no_grad():
             tree = tp_shard_params(cfg, self.param_tree(), self.axes(),
                                    ctx.tp, ctx.tp_index)
@@ -209,9 +199,10 @@ class Model(nn.Module):
                    src_len: int | None = None, dtype=None) -> dict:
         if T.is_encdec(self.cfg):
             return E.init_cache(self.cfg, batch_size, max_len,
-                                src_len or max_len, self.device, dtype)
+                                src_len or max_len, self.device, dtype,
+                                E.local_kv_heads(self.cfg, self.params))
         return T.init_cache(self.cfg, batch_size, max_len, self.device, dtype,
-                            n_kv_heads=T.local_kv_heads(self.cfg, self.params))
+                            T.local_widths(self.cfg, self.params))
 
     @torch.no_grad()
     def forward(self, batch: dict) -> torch.Tensor:

@@ -17,6 +17,15 @@ The reference's pallas branch drops the state (``state = None``), so its
 prefill leaves no recurrent state for decode: the port returns it.  The
 decode step stays plain torch on every device, as the reference keeps it
 outside any kernel.
+
+Both read their widths off the weights they hold (:func:`local_widths`):
+the config's, or a tensor-parallel rank's block of SSM heads
+(:func:`repro_torch.parallel.sharding.ssm_shard`), whose z/x channels,
+dt, conv channels and state are its own and whose B/C are those of the
+groups its heads read.  On a rank's heads the gated norm's mean of
+squares over the whole inner width is one ``tp_sum`` of the rank's
+partial sum, and ``w_out``'s rows give a partial sum of the output,
+summed by ``layers.row_parallel_sum``: two collectives a layer.
 """
 from __future__ import annotations
 
@@ -25,7 +34,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import ParamDef, rms_norm
+from repro_torch.models.layers import ParamDef, rms_norm, row_parallel_sum
+from repro_torch.parallel import mesh_ctx
 
 
 def ssm_defs(cfg: ModelConfig) -> dict:
@@ -46,13 +56,46 @@ def ssm_defs(cfg: ModelConfig) -> dict:
     }
 
 
-def _split(cfg: ModelConfig, zxbcdt: torch.Tensor):
-    di = cfg.d_inner
-    gn = cfg.ssm_groups * cfg.ssm_state
+def local_widths(cfg: ModelConfig, p) -> tuple[int, int, int]:
+    """(inner width, SSM heads, groups) the mixer weights ``p`` hold: the
+    config's, or a tensor-parallel rank's shard of them."""
+    di = p["norm_w"].shape[-1]
+    g = (p["conv_w"].shape[-1] - di) // (2 * cfg.ssm_state)
+    return di, p["a_log"].shape[-1], g
+
+
+def _split(di: int, gn: int, zxbcdt: torch.Tensor):
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di:2 * di + 2 * gn]
     dt = zxbcdt[..., 2 * di + 2 * gn:]
     return z, xbc, dt
+
+
+def in_proj(p, x: torch.Tensor) -> torch.Tensor:
+    """``x @ w_in``: the ``[z | x | B | C | dt]`` columns of the heads ``p``
+    holds."""
+    return x @ p["w_in"]
+
+
+def gated_norm(cfg: ModelConfig, p, y: torch.Tensor,
+               z: torch.Tensor) -> torch.Tensor:
+    """``rms_norm(y * silu(z), norm_w)`` over the whole inner width.  On a
+    rank's channels the mean of squares is the tp sum of the rank's
+    partial sums over ``d_inner``: one ``tp_sum`` of [..., 1]."""
+    x = y * F.silu(z.float()).to(y.dtype)
+    w = p["norm_w"]
+    if w.shape[-1] >= cfg.d_inner:
+        return rms_norm(x, w, cfg.rms_eps)
+    xf = x.float()
+    var = mesh_ctx.tp_sum((xf * xf).sum(-1, keepdim=True)) / cfg.d_inner
+    return (xf * torch.rsqrt(var + cfg.rms_eps)).to(x.dtype) * w
+
+
+def out_proj(cfg: ModelConfig, p, y: torch.Tensor) -> torch.Tensor:
+    """``y @ w_out`` (:func:`row_parallel_sum`: a rank's rows give a
+    partial)."""
+    w = p["w_out"].to(y.dtype)
+    return row_parallel_sum([(y @ w, w.shape[0], cfg.d_inner)])
 
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor,
@@ -114,12 +157,10 @@ def ssm_block(cfg: ModelConfig, p, x: torch.Tensor,
     decode always finds a full window (the reference returns a short
     tail, which its decode step cannot take)."""
     b, s, _ = x.shape
-    h, pd = cfg.ssm_heads, cfg.ssm_head_dim
-    g, n = cfg.ssm_groups, cfg.ssm_state
-    zxbcdt = x @ p["w_in"]
-    z, xbc_pre, dt = _split(cfg, zxbcdt)
+    pd, n = cfg.ssm_head_dim, cfg.ssm_state
+    di, h, g = local_widths(cfg, p)
+    z, xbc_pre, dt = _split(di, g * n, in_proj(p, x))
     xbc = F.silu(causal_conv(xbc_pre, p["conv_w"], p["conv_b"]))
-    di = cfg.d_inner
     xs = xbc[..., :di].reshape(b, s, h, pd)
     Bm = xbc[..., di:di + g * n].reshape(b, s, g, n)
     Cm = xbc[..., di + g * n:].reshape(b, s, g, n)
@@ -133,9 +174,7 @@ def ssm_block(cfg: ModelConfig, p, x: torch.Tensor,
                                else None)
     else:
         y, state = _ssd_chunk_scan(cfg, xs, dt, A, Bm, Cm, D)
-    y = y.reshape(b, s, di)
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm_w"], cfg.rms_eps)
-    out = y @ p["w_out"]
+    out = out_proj(cfg, p, gated_norm(cfg, p, y.reshape(b, s, di), z))
     if return_state:
         k1 = cfg.ssm_conv - 1
         tail = xbc_pre[:, max(s - k1, 0):]
@@ -151,16 +190,15 @@ def ssm_decode_step(cfg: ModelConfig, p, x: torch.Tensor,
     Returns (out [B, 1, d], conv_state, ssd_state) -- new tensors; the
     caller decides which rows keep them."""
     b = x.shape[0]
-    h, pd = cfg.ssm_heads, cfg.ssm_head_dim
-    g, n = cfg.ssm_groups, cfg.ssm_state
-    z, xbc, dt = _split(cfg, x @ p["w_in"])
+    pd, n = cfg.ssm_head_dim, cfg.ssm_state
+    di, h, g = local_widths(cfg, p)
+    z, xbc, dt = _split(di, g * n, in_proj(p, x))
     # conv over the stored window + new input
     win = torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)   # [B, K, C]
     conv_out = torch.einsum("bkc,kc->bc", win.float(),
                             p["conv_w"].float()) + p["conv_b"]
     xbc_t = F.silu(conv_out)
     conv_state = win[:, 1:, :]
-    di = cfg.d_inner
     xs = xbc_t[:, :di].reshape(b, h, pd)
     Bm = xbc_t[:, di:di + g * n].reshape(b, g, n)
     Cm = xbc_t[:, di + g * n:].reshape(b, g, n)
@@ -168,8 +206,7 @@ def ssm_decode_step(cfg: ModelConfig, p, x: torch.Tensor,
     A = -torch.exp(p["a_log"].float())
     y, ssd_state = ssd_ops.ssd_decode_step(xs, dtv, A, Bm, Cm,
                                            p["d_skip"].float(), ssd_state)
-    y = y.reshape(b, 1, di)
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm_w"], cfg.rms_eps)
+    y = gated_norm(cfg, p, y.reshape(b, 1, di), z)
     # y is f32 here: the reference's f32 @ bf16 promotes the weight
-    out = (y @ p["w_out"].to(y.dtype)).to(x.dtype)
+    out = out_proj(cfg, p, y).to(x.dtype)
     return out, conv_state.to(x.dtype), ssd_state

@@ -36,8 +36,9 @@ of them.  Where the reference lets GSPMD split heads, MLP columns,
 experts and vocab over "model", the port's tensor-parallel split form
 holds a rank's shards of the weights (:meth:`Model.shard
 <repro_torch.models.model.Model.shard>`) and every block computes on what
-it holds (:mod:`repro_torch.models.layers`); the batch cache then holds
-the rank's KV heads.
+it holds (:mod:`repro_torch.models.layers`, :mod:`repro_torch.models.ssm`);
+the batch cache then holds the rank's KV heads, and the Mamba2 states its
+SSM heads' (:func:`local_widths`).
 """
 from __future__ import annotations
 
@@ -241,33 +242,43 @@ def _kv_shards(n_pages: int) -> int:
     return n
 
 
-def local_kv_heads(cfg: ModelConfig, params) -> int:
-    """The KV heads the attention weights of ``params`` hold (stacked or a
-    period's views): ``cfg.n_kv_heads``, or a tensor-parallel rank's shard
-    of them; the config's where no block has attention."""
+def local_widths(cfg: ModelConfig, params) -> dict:
+    """The cache widths the weights of ``params`` (stacked or a period's
+    views) hold, as :func:`init_cache` takes them: ``n_kv_heads`` of the
+    attention blocks, and of the Mamba2 blocks ``conv_ch`` (x then B then
+    C channels) and ``ssm_heads`` -- the config's, or a tensor-parallel
+    rank's shard of them; the config's for a kind of block ``params``
+    does not have."""
+    out = {}
     for i in range(cfg.layer_period):
         block = params[f"b{i}"]
         if "attn" in block:
-            return L.local_heads(cfg, block["attn"])[1]
-    return cfg.n_kv_heads
+            out["n_kv_heads"] = L.local_heads(cfg, block["attn"])[1]
+        if "mamba" in block:
+            di, h, g = S.local_widths(cfg, block["mamba"])
+            out.update(conv_ch=di + 2 * g * cfg.ssm_state, ssm_heads=h)
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device,
-               dtype=None, n_kv_heads: int | None = None) -> dict:
+               dtype=None, widths: dict | None = None) -> dict:
     """Zero cache.  Attention block positions: batch layout ``{"k", "v"}``
-    of [n_periods, B, Hkv, max_len, hd] (``n_kv_heads``, a tensor-parallel
-    rank's KV heads, in place of ``cfg.n_kv_heads`` where given: the paged
-    pages hold every KV head, replicated over tp); paged layouts ``{"k_pages",
+    of [n_periods, B, Hkv, max_len, hd] (``widths["n_kv_heads"]``, a
+    tensor-parallel rank's KV heads (:func:`local_widths`), in place of
+    ``cfg.n_kv_heads`` where given: the paged pages hold every KV head,
+    replicated over tp); paged layouts ``{"k_pages",
     "v_pages"}`` of [n_periods, n_pages, slots, Hkv, hd], plus the
     BlockManager translation tables ``cache["vm"]`` shared by every
     attention layer (only when there is one); "paged" starts from the
     identity tables (slot b owns frames b*max_pages..), "pooled" starts
     empty.  Under a mesh context (:mod:`repro_torch.parallel.mesh_ctx`)
     the pages are this rank's block, ``n_pages / n_kv_shards`` of them,
-    and the tables stay global.  Mamba2 block positions: ``conv`` [n_periods, B, conv-1,
-    d_inner + 2GN] in the compute dtype and ``ssd`` [n_periods, B, H, N, P]
-    in f32."""
+    and the tables stay global.  Mamba2 block positions: ``conv``
+    [n_periods, B, conv-1, d_inner + 2GN] in the compute dtype and ``ssd``
+    [n_periods, B, H, N, P] in f32 (a rank's ``widths["conv_ch"]`` and
+    ``widths["ssm_heads"]`` where given)."""
     _check_decoder(cfg)
+    widths = widths or {}
     kv_dtype = torch_dtype(dtype or cfg.kv_dtype or cfg.compute_dtype)
     state_dtype = torch_dtype(dtype or cfg.compute_dtype)
     if cfg.kv_layout not in ("batch", "paged", "pooled"):
@@ -285,8 +296,8 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device,
                  cfg.n_kv_heads, cfg.hd)
     else:
         names = ("k", "v")
-        shape = (cfg.n_periods, batch_size, n_kv_heads or cfg.n_kv_heads,
-                 max_len, cfg.hd)
+        shape = (cfg.n_periods, batch_size,
+                 widths.get("n_kv_heads", cfg.n_kv_heads), max_len, cfg.hd)
     cache: dict = {}
     for i in range(cfg.layer_period):
         if cfg.layer_kind(i) == "attn":
@@ -294,13 +305,15 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device,
                                                 device=device)
                               for name in names}
         else:
-            conv_ch = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+            conv_ch = widths.get("conv_ch", cfg.d_inner + 2 * cfg.ssm_groups
+                                 * cfg.ssm_state)
             cache[f"b{i}"] = {
                 "conv": torch.zeros((cfg.n_periods, batch_size,
                                      cfg.ssm_conv - 1, conv_ch),
                                     dtype=state_dtype, device=device),
                 "ssd": torch.zeros((cfg.n_periods, batch_size,
-                                    cfg.ssm_heads, cfg.ssm_state,
+                                    widths.get("ssm_heads", cfg.ssm_heads),
+                                    cfg.ssm_state,
                                     cfg.ssm_head_dim), dtype=torch.float32,
                                    device=device)}
     if not paged or all(cfg.layer_kind(i) != "attn"
@@ -370,7 +383,7 @@ def prefill(cfg: ModelConfig, params, batch: dict, max_len: int,
     positions = _positions(x)
     cache = init_cache(dataclasses.replace(cfg, kv_layout="batch"), b,
                        max_len, x.device, x.dtype,
-                       n_kv_heads=local_kv_heads(cfg, params))
+                       widths=local_widths(cfg, params))
     for j, pp in enumerate(_periods(cfg, params, periods)):
         for i in range(cfg.layer_period):
             entry = {name: t[j] for name, t in cache[f"b{i}"].items()}

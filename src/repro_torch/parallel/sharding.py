@@ -18,10 +18,10 @@ Rule sets:
 A mesh is a ``DeviceMesh`` or any object with a ``.shape`` dict of axis
 sizes.
 
-:func:`tp_shard_params` is the tensor-parallel split form of a decoder's
-weights under ``tp_only``: one rank's whole-head, column, expert and vocab
-shards (what :meth:`repro_torch.models.model.Model.shard` holds), where the
-reference leaves the split to GSPMD.
+:func:`tp_shard_params` is the tensor-parallel split form of a model's
+weights under ``tp_only``: one rank's whole-head, column, expert, SSM-head
+and vocab shards (what :meth:`repro_torch.models.model.Model.shard`
+holds), where the reference leaves the split to GSPMD.
 """
 from __future__ import annotations
 
@@ -253,18 +253,63 @@ def _block(size: int, tp: int, index: int):
     return index * n, (index + 1) * n
 
 
+def ssm_shard(cfg, p: dict, tp: int, index: int) -> dict:
+    """Tp rank ``index``'s shard of a Mamba2 mixer's weights ``p`` (one
+    layer's, or stacked over periods on a leading dim): its block of SSM
+    heads ``[h_lo, h_hi)`` (:func:`head_shard` over the heads and their
+    ``ssm_groups``) and what those heads read and write -- the z, x and dt
+    columns of ``w_in``, the x channels of ``conv_w`` / ``conv_b``,
+    ``norm_w``, the rows of ``w_out``, the heads of ``a_log`` / ``dt_bias``
+    / ``d_skip`` -- with the B and C columns and conv channels of the
+    groups the heads read (every group's, the whole of them, while tp does
+    not divide the groups).  The order of each concatenated dim stays
+    ``[z | x | B | C | dt]`` of ``w_in`` and ``[x | B | C]`` of the conv,
+    so the mixer reads its local widths off the weights.  GSPMD's
+    ``ssm_inner`` would hand a rank a contiguous block of those dims
+    instead; this cut is the one whose rank computes whole heads.  Where
+    tp does not divide the heads, everything stays whole."""
+    heads = head_shard(cfg.ssm_heads, cfg.ssm_groups, tp, index)
+    if heads is None:
+        return p
+    h_lo, h_hi, g_lo, g_hi = heads
+    pd, n = cfg.ssm_head_dim, cfg.ssm_state
+    di, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+
+    def span(base, lo, hi, width):
+        return torch.arange(base + lo * width, base + hi * width)
+    x = span(0, h_lo, h_hi, pd)
+    bc = torch.cat([span(di, g_lo, g_hi, n), span(di + gn, g_lo, g_hi, n)])
+    conv = torch.cat([x, bc])
+    cols = {"w_in": torch.cat([x, di + conv, span(2 * di + 2 * gn, h_lo,
+                                                  h_hi, 1)]),
+            "conv_w": conv, "conv_b": conv, "norm_w": x}
+    out = {}
+    for name, t in p.items():
+        if name == "w_out":
+            t = t.narrow(-2, h_lo * pd, (h_hi - h_lo) * pd)
+        elif name in cols:
+            t = t.index_select(-1, cols[name].to(t.device))
+        else:                            # a_log, dt_bias, d_skip: per head
+            t = t.narrow(-1, h_lo, h_hi - h_lo)
+        out[name] = t.clone(memory_format=torch.contiguous_format)
+    return out
+
+
 def tp_shard_params(cfg, params: dict, axes: dict, tp: int,
                     index: int) -> dict:
-    """Tp rank ``index``'s shards of a decoder's ``params`` (nested dicts of
+    """Tp rank ``index``'s shards of a model's ``params`` (nested dicts of
     tensors, with their logical ``axes`` tree) under ``tp_only``: each
     ``q_heads`` / ``kv_heads`` dim (flat ``H * hd`` columns) to the rank's
     whole heads (:func:`head_shard`), ``mlp`` to its column block,
     ``experts`` to its block of experts where tp divides them (the
     ``mlp`` dim of those tensors then stays whole, as :func:`spec_for`
-    assigns "model" once), ``vocab`` to its row or column block; the
-    router stays whole (top-k needs every expert's score), as do
-    ``embed``, the norms and every dim tp does not divide.  Returns new
-    contiguous tensors (the whole ones can be freed)."""
+    assigns "model" once), ``vocab`` to its row or column block, a Mamba2
+    mixer (``mamba``) to its SSM heads (:func:`ssm_shard`); the router
+    stays whole (top-k needs every expert's score), as do ``embed``, the
+    norms and every dim tp does not divide.  Decoders and enc-dec alike
+    (its encoder, self- and cross-attention split their heads as a
+    decoder's).  Returns new contiguous tensors (the whole ones can be
+    freed)."""
     heads = head_shard(cfg.n_heads, cfg.n_kv_heads, tp, index)
     hd = cfg.hd
 
@@ -290,6 +335,7 @@ def tp_shard_params(cfg, params: dict, axes: dict, tp: int,
         return t.clone(memory_format=torch.contiguous_format) if used else t
 
     def walk(tree, ax_tree):
-        return {k: walk(v, ax_tree[k]) if isinstance(v, dict)
+        return {k: ssm_shard(cfg, v, tp, index) if k == "mamba"
+                else walk(v, ax_tree[k]) if isinstance(v, dict)
                 else leaf(k, v, ax_tree[k]) for k, v in tree.items()}
     return walk(params, axes)

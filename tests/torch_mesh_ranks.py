@@ -303,15 +303,16 @@ def _decoder(layout, params, pool=16):
 
 
 def decode_logits(model, toks):
-    """tests/test_distributed.py:297-346's decode from scratch: for pooled,
-    host tables with the scattered FRAMES; logits of every step."""
+    """tests/test_distributed.py:297-346's decode from scratch of ``toks``
+    [B, <= S]: for pooled, host tables with the scattered FRAMES; logits
+    of every step."""
     frames = iter(FRAMES)
     cache = model.init_cache(B, 16)
     bt = np.full((B, 4), -1, np.int32)
     fl = np.zeros(16, np.int32)
     lengths = torch.zeros(B, dtype=torch.int32)
     out = []
-    for t in range(S):
+    for t in range(toks.shape[1]):
         lengths = lengths + 1
         if model.cfg.kv_layout == "pooled":
             for b in range(B):
