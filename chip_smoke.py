@@ -173,14 +173,14 @@ JSON line with its seconds (phase archs one per arch):
                  layer and decode step in each pooled or reserved
                  section, both in the sweep, K6 and K7 in the EMemVM
                  rows; each headline beside the CPU one of BENCH_vm.json;
-17. archs     -- each of ARCHS_LAYERS's six archs in bf16 at its published
-                 widths, cut in depth only where 80 GB cannot hold it (the
-                 cut as ``reduced`` on its line), one at a time: a
-                 4-request trace of the serve phase's settings through
+17. archs     -- each of ARCHS_LAYERS's seven archs in bf16 at its
+                 published widths, cut to 8 layers (the cut as
+                 ``reduced`` on its line), one at a time: a
+                 3-request trace of the serve phase's settings through
                  the engine + scheduler on
                  the pooled layout (every request completed, no frame
                  leaked, K1 and K2 once per attention layer and decode
-                 step); 16 teacher-forced steps on 4-slot pages with K1
+                 step); 8 teacher-forced steps on 4-slot pages with K1
                  and K2 held to the composed oracle on each step's real
                  inputs, and the logits of one step from the same
                  history and expert choices within phase teacher's bf16
@@ -257,10 +257,21 @@ JSON line with its seconds (phase archs one per arch):
                  give one card's logits within 2e-4 of their scale; per-
                  rank weight bytes, collectives per step, a bf16 pooled
                  step's wall and device ms per rank beside one card's;
-                 and qwen2-moe-a2.7b's split form (24 layers, f32 from a
+                 and qwen2-moe-a2.7b's split form (8 layers, f32 from a
                  bf16 draw) with one card's routing gives its logits
                  within the larger of 2e-4 and 4 times one card's own
                  disagreement between its kernels' and plain attention.
+24. tp_mixers -- the split form of mamba2-780m, jamba-v0.1-52b and
+                 seamless-m4t-medium over the same two processes
+                 (``phase_tp_mixers``).
+25. tp_train  -- the mesh trainer's tensor-parallel step over the same two
+                 processes on a (1, 2) cuda mesh: qwen3-0.6b at full width
+                 in f32, 3 steps of 4 x 128, each step's loss and grad
+                 norm against one card's trainer and every step-1
+                 gradient leaf; mamba2-780m at CUT_LAYERS's depth, one
+                 step, its B/C gradients apart; in bf16 the per-rank
+                 state bytes, wall and device ms and collectives a step
+                 beside one card's (``phase_tp_train``).
 
 Then it prints the kernels' JSON line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -3180,21 +3191,24 @@ def phase_vm_bench(dev):
 # -- phase 17 ------------------------------------------------------------------
 
 #: the reference registry's other decoder archs at their published widths
-#: in bf16, each cut in depth (layers run) only where one card's 80 GB
-#: cannot hold its weights: qwen2-72b 145 GB, mixtral-8x7b 93 GB,
-#: jamba-v0.1-52b 103 GB in full (ModelConfig.param_count, bf16); jamba's
-#: 8 layers are one whole period (1 attention + 7 Mamba2, MoE on 4);
-#: qwen2-vl-7b (15.2 GB) at full depth, its vision frontend a stub fed
-#: frame embeddings
-ARCHS_LAYERS = {"granite-3-2b": None, "h2o-danube-1.8b": None,
-                "qwen2-moe-a2.7b": None, "qwen2-72b": 8, "mixtral-8x7b": 8,
-                "jamba-v0.1-52b": 8, "qwen2-vl-7b": None}
+#: in bf16, each cut to 8 layers: qwen2-72b (145 GB in full,
+#: ModelConfig.param_count, bf16), mixtral-8x7b (93 GB) and jamba-v0.1-52b
+#: (103 GB) because one card's 80 GB cannot hold their weights, granite
+#: (40 layers), danube (24), qwen2-moe (24) and qwen2-vl-7b (28) so that
+#: the whole script keeps within its limit (their lockstep teacher ran
+#: 19-35 s an arch at full depth); jamba's 8 layers are one whole period
+#: (1 attention + 7 Mamba2, MoE on 4); qwen2-vl-7b's vision frontend is a
+#: stub fed frame embeddings
+ARCHS_LAYERS = {"granite-3-2b": 8, "h2o-danube-1.8b": 8,
+                "qwen2-moe-a2.7b": 8, "qwen2-72b": 8, "mixtral-8x7b": 8,
+                "jamba-v0.1-52b": 8, "qwen2-vl-7b": 8}
 #: the serve phase's trace settings at this many requests, drawn in each
-#: arch's vocabulary
-ARCHS_REQUESTS = 4
+#: arch's vocabulary (3: the script's whole run keeps within its limit)
+ARCHS_REQUESTS = 3
 #: the teacher's steps, on pages of 4 slots, so that a sequence's history
-#: spans frames of both emulated shards (the oracle's other order)
-ARCHS_TEACHER_STEPS, ARCHS_TEACHER_PAGE_SLOTS = 16, 4
+#: spans frames of both emulated shards (the oracle's other order): 8, a
+#: history of 8 or more positions over two frames or more
+ARCHS_TEACHER_STEPS, ARCHS_TEACHER_PAGE_SLOTS = 8, 4
 #: the archs whose prefill is held to its kernel's plain version: K3 at
 #: D 64 on the tensor cores (granite), D 80 on the CUDA cores (danube) and
 #: D 128 at G 7 on the tensor cores from frame embeddings (qwen2-vl), K5
@@ -3387,6 +3401,21 @@ def arch_prefill_k3(dev, model):
                                           window=cfg.window), iters=10)
     mha = timed(lambda: ref.mha(q, k, v, causal=True, window=cfg.window),
                 iters=10)
+    # the library's attention on the same inputs, and K3's bound there
+    import torch.nn.functional as F
+    i = np.arange(PREFILL_S)
+    span = np.minimum(i + 1, cfg.window or PREFILL_S)
+    mask = None
+    if cfg.window and cfg.window < PREFILL_S:
+        pos = torch.arange(PREFILL_S, device=dev)
+        mask = (pos[None, :] <= pos[:, None]) \
+            & (pos[:, None] - pos[None, :] < cfg.window)
+    sdpa = timed(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=mask is None,
+        enable_gqa=cfg.n_heads != cfg.n_kv_heads), iters=10)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    ops = 4 * cfg.hd * int(span.sum()) * PREFILL_B * cfg.n_heads
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
     del q, k, v
     return launches["flash_attention"], {
         "kernel": "K3", "variant": variant, "head_dim": cfg.hd,
@@ -3396,6 +3425,9 @@ def arch_prefill_k3(dev, model):
         "k3_real_inputs_max_abs_err": err["k3_real"],
         "k3_real_inputs": n_real,
         "k3_ms": k3["device_ms"], "k3_plain_ms": mha["device_ms"],
+        "k3_library_ms": sdpa["device_ms"],
+        "k3_bound_ms": max(t_bytes, t_ops) * 1e3,
+        "k3_bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "rel": rel, "rel_plain_chunked": floor,
         "rtol": LOGIT_RTOL["bfloat16"], "prefill_ms": wall_ms,
         "device_ms_per_prefill": dev_ms,
@@ -3968,13 +4000,99 @@ def k4_timing(dev, hkv, g, d, s, err):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def k4_order(q, k, v, lengths, *, scale=None, window=None):
+    """K4's arithmetic in plain torch, step for step (the witness of its
+    order; ``csrc/split_decode.cuh``), for bf16 K/V rows of at most 16
+    units of 16 bytes (D <= 128): q [B, Hkv, G, D] as K4 takes it, k/v
+    [B, Hkv, S, D].  Each half-warp lane's q.k over its unit is an FMA
+    chain (an FMA rounded once, emulated in float64: a product of two f32
+    is exact there), the lanes' partials summed by the xor-8/4/2/1
+    butterfly, times ``scale``; each warp's 16 positions (even ones on
+    half 0, odd on half 1) give p = exp(s - m) over the warp's max, l a
+    running sum and acc an FMA chain per half, the halves added; the
+    block merges its 4 warps in order (FMA chains weighted by exp(m_w -
+    mm)), the splits are merged the same way in split order, and out =
+    acc / l rounds once to bf16.  Returns [B, Hkv, G, D] bf16."""
+    import torch
+    f32, f64 = torch.float32, torch.float64
+
+    def fma(a, b, c):
+        return (a.to(f64) * b.to(f64) + c.to(f64)).to(f32)
+    b, hkv, g, d = q.shape
+    s = k.shape[2]
+    e_n = 16 // k.element_size()
+    nu = d // e_n
+    if k.dtype != torch.bfloat16 or d % e_n or nu > 16:
+        raise ValueError("k4_order: bf16 rows of at most 16 units")
+    scale = d ** -0.5 if scale is None else scale
+    splits = -(-s // 64)
+    pad = splits * 64 - s
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
+    qf = q.float().reshape(b, hkv, g, 1, nu, e_n)
+    kf = kf.reshape(b, hkv, 1, splits * 64, nu, e_n)
+    part = torch.zeros((b, hkv, g, splits * 64, nu), dtype=f32,
+                       device=q.device)
+    for e in range(e_n):
+        part = fma(qf[..., e], kf[..., e], part)
+    lanes = torch.nn.functional.pad(part, (0, 16 - nu))
+    idx = torch.arange(16, device=q.device)
+    for o in (8, 4, 2, 1):
+        lanes = lanes + lanes[..., idx ^ o]
+    sc = lanes[..., 0] * scale                       # [B, Hkv, G, S']
+    pos = torch.arange(splits * 64, device=q.device)
+    length = lengths.long()[:, None]
+    lo = torch.zeros_like(length)
+    if window is not None and window > 0:
+        lo = torch.where(length > window, length - window, 0)
+    hi = length.clamp(max=s)
+    ok = (pos[None, :] >= lo) & (pos[None, :] < hi)
+    sc = torch.where(ok[:, None, None, :], sc, -torch.inf)
+    # [B, Hkv, G, split, warp 4, r 8, half 2]
+    sc = sc.reshape(b, hkv, g, splits, 4, 8, 2)
+    vw = vf.reshape(b, hkv, 1, splits, 4, 8, 2, d)
+    m = torch.clamp(sc.amax((-2, -1)), min=-1e30)    # [.., split, warp]
+    p = torch.exp(sc - m[..., None, None])
+    l = torch.zeros(p.shape[:-2] + (2,), dtype=f32, device=q.device)
+    acc = torch.zeros(p.shape[:-2] + (2, d), dtype=f32, device=q.device)
+    for r in range(8):
+        l = l + p[..., r, :]
+        acc = fma(p[..., r, :, None], vw[..., r, :, :], acc)
+    l = l[..., 0] + l[..., 1]
+    acc = acc[..., 0, :] + acc[..., 1, :]
+    mm = torch.clamp(m.amax(-1), min=-1e30)          # [.., split]
+    sums = torch.zeros_like(acc[..., 0, :])
+    lsum = torch.zeros_like(l[..., 0])
+    for w in range(4):
+        wt = torch.exp(m[..., w] - mm)
+        sums = fma(acc[..., w, :], wt[..., None], sums)
+        lsum = fma(l[..., w], wt, lsum)
+    live = torch.maximum(lo, torch.arange(splits, device=q.device)[None, :]
+                         * 64) < torch.minimum(
+        hi, (torch.arange(splits, device=q.device)[None, :] + 1) * 64)
+    live = live[:, None, None, :]                    # [B, 1, 1, split]
+    top = torch.where(live, mm, -1e30).amax(-1).clamp(min=-1e30)
+    out = torch.zeros_like(sums[..., 0, :])
+    total = torch.zeros_like(lsum[..., 0])
+    for j in range(splits):
+        wt = torch.exp(mm[..., j] - top)
+        on = live[..., j]
+        total = torch.where(on, fma(lsum[..., j], wt, total), total)
+        out = torch.where(on[..., None], fma(sums[..., j, :], wt[..., None],
+                                             out), out)
+    out = out / torch.where(total == 0, 1.0, total)[..., None]
+    return out.to(torch.bfloat16)
+
+
 def k4_real_f64(fn) -> dict:
     """K4 on the inputs it is given while ``fn()`` runs, each launch beside
     its plain version (``flash_ref.decode_attention``), the plain version
     with each q.k summed in reverse order, and the same attention in
     float64: the largest |error| of each against float64, and the share of
     output elements that differ from the plain version's bits, for K4 and
-    for the reversed plain version."""
+    for the reversed plain version; bf16 launches also against
+    ``k4_order`` (K4's own order in plain torch): the outputs that differ
+    from K4's bits, and the largest |difference|."""
     import torch
     from repro_torch.kernels.paged_decode import flash as K4
     from repro_torch.kernels.paged_decode import flash_ref
@@ -3991,11 +4109,18 @@ def k4_real_f64(fn) -> dict:
     err = {"k4": 0.0, "plain": 0.0, "reversed": 0.0}
     differ = {"k4": 0, "reversed": 0}
     n = 0
+    witness = {"not_bit_equal": 0, "max_abs_diff": 0.0}
     for q, k, v, lengths, kw in got:
         b, hkv, g, d = q.shape
         qh = q.reshape(b, hkv * g, d)
         rev = torch.arange(d - 1, -1, -1, device=q.device)
-        outs = {"k4": launch(q, k, v, lengths, **kw)[0].reshape(qh.shape),
+        k4_out = launch(q, k, v, lengths, **kw)[0]
+        if k4_out.dtype == torch.bfloat16:
+            w_out = k4_order(q, k, v, lengths, **kw)
+            witness["not_bit_equal"] += int((w_out != k4_out).sum())
+            witness["max_abs_diff"] = max(witness["max_abs_diff"], (
+                w_out.float() - k4_out.float()).abs().max().item())
+        outs = {"k4": k4_out.reshape(qh.shape),
                 "plain": flash_ref.decode_attention(qh, k, v, lengths, **kw),
                 "reversed": flash_ref.decode_attention(
                     qh[..., rev], k[..., rev], v, lengths, **kw)}
@@ -4015,7 +4140,8 @@ def k4_real_f64(fn) -> dict:
         n += outs["plain"].numel()
     return {"launches": len(got), "vs_float64": err,
             "share_not_bit_equal_to_plain": {k: v / n
-                                             for k, v in differ.items()}}
+                                             for k, v in differ.items()},
+            "k4_order_witness": dict(witness, outputs=n)}
 
 
 def phase_encdec(dev):
@@ -4047,7 +4173,8 @@ def phase_encdec(dev):
     paths' free-running tokens, where they part and the encoder outputs'
     distance reported.  Every gate is read before the phase fails, and a
     failing phase prints its line first.  K4 on one bf16 step's real
-    inputs against float64 beside its plain version (``k4_real_f64``).
+    inputs against float64 beside its plain version (``k4_real_f64``),
+    and bit for bit against ``k4_order``, K4's arithmetic in plain torch.
     Timings: a profiled bf16 decode
     step against the read of its weights (and of its caches); K3 at Sq 1 /
     Skv 512 / D 64 with SDPA's time; K4 at D 64 / G 1.  Returns ({kernel:
@@ -4144,6 +4271,9 @@ def phase_encdec(dev):
     def step():
         model.decode_step(tok, cache, step_len)
     res["k4_real_inputs"] = k4_real_f64(step)
+    witness = res["k4_real_inputs"]["k4_order_witness"]
+    if witness["not_bit_equal"] or not witness["outputs"]:
+        failed.append(f"K4 against its order's witness (k4_order) {witness}")
     t = timed(step, iters=20)
     dev_ms, by_name = device_profile(step, iters=10)
     weight_bytes = sum(p.numel() * p.element_size() for p in (
@@ -4979,7 +5109,7 @@ TP_LOGIT_RTOL, TP_LOGIT_ATOL = 2e-4, 1e-4
 #: layout's prefill and decode steps twice: with the one card's expert
 #: choices pinned, as phase archs pins them (the router, whole on every
 #: rank, weighs them from its own scores), against the one card computing
-#: every product in a rank's shape (TwoRankOrder: 24 random layers turn
+#: every product in a rank's shape (TwoRankOrder: 24 random layers turned
 #: the last bits the shapes change into 6e-2 of the logits once the
 #: router weighs its choices itself, so the plain one card is no
 #: yardstick there); and with the choices' weights pinned too, against
@@ -5687,7 +5817,9 @@ def tpm_serve_cfg():
 
 
 def tpm_trace(cfg) -> dict:
-    return dict(TP_TRACE, vocab_size=cfg.vocab_size)
+    """(a)'s engine trace: TP_TRACE's shape at 2 requests (each step is 17
+    gloo round trips a rank at 8 layers)."""
+    return dict(TP_TRACE, n_requests=2, vocab_size=cfg.vocab_size)
 
 
 def encdec_logits(model, embeds, toks):
@@ -6128,11 +6260,340 @@ def phase_tp_mixers(dev):
     return launches, err, res
 
 
+# -- phase 25 ------------------------------------------------------------------
+
+#: phase tp_train: the mesh trainer's tensor-parallel step (each tp rank's
+#: loss and gradients on its split form) over TP_WORLD gloo processes on
+#: the one card, a (1, 2) mesh.  (a) qwen3-0.6b at full width and depth in
+#: f32, TPT_STEPS steps of a TPT_BATCH batch from seed 0; (b) mamba2-780m
+#: f32 at CUT_LAYERS's depth, one step; (c) (a)'s model in bf16 with f32
+#: masters, TPT_BF16_STEPS timed steps and one profiled
+TPT_BATCH, TPT_STEPS = (4, 128), 3
+TPT_BF16_BATCH, TPT_BF16_STEPS = (8, 256), 2
+#: (a)'s gates against one card's trainer on the same batches: each step's
+#: loss and grad norm relative, and each step-1 gradient leaf relative to
+#: the leaf's max |g| (also (b)'s), or ORDER_FACTOR times one card's own
+#: disagreement where larger: its step-1 gradients over 2 microbatches
+#: against 1 (the same sums in another order)
+TPT_LOSS_RTOL, TPT_NORM_RTOL, TPT_GRAD_RTOL = 1e-4, 1e-3, 1e-3
+
+
+def tpt_cfg(arch: str, dtype: str):
+    """(a)-(c)'s configs: the arch at full width in ``dtype``, remat
+    "block" (phase train's), mamba2 at CUT_LAYERS's depth."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), param_dtype=dtype,
+                              compute_dtype=dtype, remat="block")
+    if arch == "mamba2-780m":
+        cfg = dataclasses.replace(cfg, n_layers=CUT_LAYERS[arch])
+    return cfg
+
+
+def tpt_run(cfg, dev, mesh, batch_shape, steps, keep_grads=False,
+            profile=False, microbatches: int = 1) -> dict:
+    """``steps`` steps of ``cfg`` from seed 0 (``Trainer.init_state``) on
+    ``mesh`` (None: one card) over SyntheticLM's batches: each step's loss,
+    grad norm and wall ms, the collectives of each (the model's and the
+    trainer's), the state's and the model's bytes; with ``keep_grads`` the
+    step-1 gradients as the trainer hands them to AdamW (on a mesh each
+    leaf's local block and its tp dim, None where the rank holds it
+    whole); with ``profile`` one more step under the profiler.  One card
+    takes ``microbatches``."""
+    import torch
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.parallel import mesh_ctx
+    from repro_torch.train import trainer as T
+    from repro_torch.tree import flatten
+    trainer = T.Trainer(Model(cfg, device=dev, seed=0), mesh,
+                        AdamWConfig(lr=1e-3),
+                        T.TrainConfig(microbatches=microbatches))
+    params, opt = trainer.init_state(seed=0)
+    torch.cuda.empty_cache()
+    data = SyntheticLM(cfg, DataConfig(*batch_shape, seed=0))
+    out = {"hist": [], "calls": [], "grads": None}
+
+    def local(t):
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    def nbytes(tree):
+        return sum(local(t).numel() * t.element_size()
+                   for t in flatten(tree).values())
+    update = adamw.update
+
+    def keep(ocfg, g, *args):
+        if keep_grads and out["grads"] is None:
+            out["grads"] = {}
+            for k, t in flatten(g).items():
+                tp_dim = None
+                if isinstance(t, DTensor):
+                    tp_dims = [pl.dim for pl in t.placements[1:]
+                               if isinstance(pl, Shard)]
+                    tp_dim = tp_dims[0] if tp_dims else None
+                out["grads"][k] = (local(t).detach().clone(), tp_dim)
+        return update(ocfg, g, *args)
+    adamw.update = keep
+    try:
+        for step in range(steps):
+            mesh_ctx.reset_calls()
+            T.reset_calls()
+            params, opt, h = trainer.run(
+                params, opt, iter([data.global_batch(step)]), 1)
+            out["hist"].append((h[0]["loss"], h[0]["grad_norm"],
+                                h[0]["step_time_s"] * 1e3))
+            out["calls"].append({"model": dict(mesh_ctx.CALLS),
+                                 "trainer": dict(T.CALLS)})
+        if profile:
+            batch = data.global_batch(steps)
+            out["profiled_step"] = step_profile(
+                lambda: trainer.run(params, opt, iter([batch]), 1))
+    finally:
+        adamw.update = update
+    out["state_bytes"] = nbytes({"params": params, "opt": opt})
+    out["model_bytes"] = weight_bytes(trainer.model)
+    out["whole_state_bytes"] = sum(
+        t.numel() * t.element_size()
+        for t in flatten({"params": params, "opt": opt}).values())
+    out["shard"] = trainer.model.tp_shard
+    del trainer, params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def tpt_grad_errors(got: dict, want_path: str, rank: int,
+                    bc=None) -> dict:
+    """Each leaf's step-1 gradient block of tp rank ``rank`` (``got``:
+    {path: (block, tp dim)}) against the same block of one card's whole
+    gradient (``want_path``, memory-mapped), relative to the whole leaf's
+    max |g|; with ``bc`` ({path: (dim, lo, hi)}) also the error over those
+    positions of the whole leaf that the block holds, relative to their own
+    max |g| (the Mamba2 B/C columns)."""
+    import torch
+    want = torch.load(want_path, mmap=True)
+    out, bc_err = {}, {}
+    for k, (g, tp_dim) in got.items():
+        w = want["grads"][k]
+        lo = 0
+        if tp_dim is not None:
+            n = g.shape[tp_dim]
+            lo = rank * n
+            w = w.narrow(tp_dim, lo, n)
+        w = w.to(g.device, torch.float32)
+        diff = (g.float() - w).abs()
+        out[k] = diff.max().item() / max(want["max"][k], 1e-30)
+        if bc and k in bc:
+            dim, b_lo, b_hi = bc[k]
+            if tp_dim not in (None, dim):
+                continue
+            a, b = max(b_lo - lo, 0), min(b_hi - lo, w.shape[dim])
+            if a < b:
+                bc_err[k] = diff.narrow(dim, a, b - a).max().item() / max(
+                    w.narrow(dim, a, b - a).abs().max().item(), 1e-30)
+    return out, bc_err
+
+
+def tpt_bc(cfg) -> dict:
+    """The Mamba2 blocks' B and C columns of ``w_in`` and conv channels:
+    {path: (dim, lo, hi)} of the stacked leaves."""
+    di, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+    return {"b0/mamba/w_in": (2, 2 * di, 2 * di + 2 * gn),
+            "b0/mamba/conv_w": (2, di, di + 2 * gn),
+            "b0/mamba/conv_b": (1, di, di + 2 * gn)}
+
+
+def tp_train_rank(rank: int, workdir: str, device: str) -> None:
+    """One of the TP_WORLD processes of phase tp_train: a gloo group over a
+    ``file://`` store in ``workdir`` and a (1, 2) mesh, on which the
+    trainer installs its context and splits its model; (a), (b) with
+    their step-1 gradient blocks held to one card's (``tpt_grad_errors``),
+    (c) timed and profiled.  Saves what it saw as ``rank<r>.pkl``; the
+    group is destroyed at the end."""
+    import pickle
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+    from repro_torch.parallel import mesh_ctx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    torch.cuda.set_device(dev.index or 0)
+    init_process_group("cpu", rank=rank, world_size=TP_WORLD,
+                       init_method=f"file://{workdir}/store")
+    out = {"rank": rank}
+    laps = out["laps_s"] = {}
+    try:
+        with open(os.path.join(workdir, "routing.pkl"), "rb") as f:
+            paths = pickle.load(f)
+        mesh = make_mesh((1, TP_WORLD), ("data", "model"), device)
+        for key, arch, batch, steps in (
+                ("qwen3", "qwen3-0.6b", TPT_BATCH, TPT_STEPS),
+                ("mamba2", "mamba2-780m", TPT_BATCH, 1)):
+            t = time.monotonic()
+            cfg = tpt_cfg(arch, "float32")
+            run = tpt_run(cfg, dev, mesh, batch, steps, keep_grads=True)
+            out[key] = {k: v for k, v in run.items() if k != "grads"}
+            out[key]["grad_rel"], out[key]["bc_rel"] = tpt_grad_errors(
+                run["grads"], paths[key], rank,
+                tpt_bc(cfg) if key == "mamba2" else None)
+            del run
+            torch.cuda.empty_cache()
+            laps[key] = time.monotonic() - t
+        t = time.monotonic()
+        out["bf16"] = tpt_run(tpt_cfg("qwen3-0.6b", "bfloat16"), dev, mesh,
+                              TPT_BF16_BATCH, TPT_BF16_STEPS, profile=True)
+        laps["bf16"] = time.monotonic() - t
+        with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        mesh_ctx.clear_context()
+        mesh_ctx.forget_groups()
+        dist.destroy_process_group()
+
+
+def phase_tp_train(dev):
+    """The mesh trainer's tensor-parallel step on the card (``Trainer`` on
+    a (1, 2) mesh over TP_WORLD gloo processes: each rank computes the
+    loss and every gradient on its split form -- its heads, MLP columns,
+    SSM heads, vocab block -- and the step sums over tp only what the
+    split leaves partial).  (a) qwen3-0.6b at full width and depth in f32:
+    each of TPT_STEPS steps' loss within TPT_LOSS_RTOL and grad norm
+    within TPT_NORM_RTOL of one card's trainer on the same batches, every
+    step-1 gradient leaf within TPT_GRAD_RTOL of the leaf's max |g| (or
+    ORDER_FACTOR times one card's own disagreement over 2 microbatches,
+    where larger); (b)
+    mamba2-780m f32 at CUT_LAYERS's depth, one step, held as (a), with the
+    B/C columns' and channels' gradients (whole on every rank, each rank's
+    a partial, summed over tp) reported apart; (c) qwen3-0.6b bf16 with
+    f32 masters: per-rank state and weight bytes against the whole, wall
+    ms of each step, one profiled step's device ms, and the collectives a
+    step (the model's all-reduces and the trainer's), beside one card's.
+    The training takes the plain paths: no kernel launches."""
+    import torch
+    res, failed = {"card": card()}, []
+    torch.cuda.empty_cache()
+    t = time.monotonic()
+    paths, one, order = {}, {}, {}
+    for key, arch, steps in (("qwen3", "qwen3-0.6b", TPT_STEPS),
+                             ("mamba2", "mamba2-780m", 1)):
+        cfg = tpt_cfg(arch, "float32")
+        run = tpt_run(cfg, dev, None, TPT_BATCH, steps, keep_grads=True)
+        other = tpt_run(cfg, dev, None, TPT_BATCH, 1, keep_grads=True,
+                        microbatches=2)["grads"]
+        order[key] = {k: ((other[k][0] - g).abs().max()
+                          / g.abs().max().clamp(min=1e-30)).item()
+                      for k, (g, _) in run["grads"].items()}
+        bc = tpt_bc(cfg) if key == "mamba2" else {}
+        order[key + "_bc"] = {
+            k: ((other[k][0] - run["grads"][k][0]).narrow(d, lo, hi - lo)
+                .abs().max() / run["grads"][k][0].narrow(d, lo, hi - lo)
+                .abs().max().clamp(min=1e-30)).item()
+            for k, (d, lo, hi) in bc.items()}
+        del other
+        grads = {k: g.cpu() for k, (g, _) in run["grads"].items()}
+        paths[key] = os.path.join(ROOT, "build",
+                                  f"tp_train_{key}_{os.getpid()}.pt")
+        torch.save({"grads": grads, "max": {k: g.abs().max().item()
+                                            for k, g in grads.items()}},
+                   paths[key])
+        del grads, run["grads"]
+        one[key] = run
+    one["bf16"] = tpt_run(tpt_cfg("qwen3-0.6b", "bfloat16"), dev, None,
+                          TPT_BF16_BATCH, TPT_BF16_STEPS, profile=True)
+    res["one_card_s"] = time.monotonic() - t
+    t = time.monotonic()
+    try:
+        ranks = run_ranks(tp_train_rank, "tp_train", paths, dev)
+    finally:
+        for path in paths.values():
+            if os.path.exists(path):
+                os.remove(path)
+    res["ranks_s"] = time.monotonic() - t
+    r0 = ranks[0]
+    for key in ("qwen3", "mamba2"):
+        got, want = r0[key], one[key]
+        rows = []
+        for i, ((l, n, _), (wl, wn, _)) in enumerate(zip(got["hist"],
+                                                         want["hist"])):
+            row = {"loss": l, "one_card_loss": wl,
+                   "loss_rel": abs(l - wl) / abs(wl),
+                   "grad_norm": n, "one_card_grad_norm": wn,
+                   "grad_norm_rel": abs(n - wn) / abs(wn)}
+            rows.append(row)
+            if row["loss_rel"] > TPT_LOSS_RTOL \
+                    or row["grad_norm_rel"] > TPT_NORM_RTOL \
+                    or not np.isfinite(l):
+                failed.append(f"{key} step {i + 1}: {row}")
+        grad_rel = {k: max(o[key]["grad_rel"][k] for o in ranks)
+                    for k in got["grad_rel"]}
+        worst = max(grad_rel, key=grad_rel.get)
+        gate = max(TPT_GRAD_RTOL, ORDER_FACTOR * max(order[key].values()))
+        if grad_rel[worst] > gate:
+            failed.append(f"{key} step-1 gradient {worst} "
+                          f"{grad_rel[worst]} of its max |g| > {gate}")
+        if any((a[0], a[1]) != (b[0], b[1]) for o in ranks[1:]
+               for a, b in zip(o[key]["hist"], got["hist"])):
+            failed.append(f"{key}: the ranks' losses differ")
+        res[key] = {"steps": rows, "batch": list(TPT_BATCH),
+                    "grad_rel_max": grad_rel[worst], "grad_rel_worst": worst,
+                    "grad_gate": gate,
+                    "one_card_order_rel": max(order[key].values()),
+                    "one_card_order_worst": max(order[key],
+                                                key=order[key].get),
+                    "leaves": len(grad_rel),
+                    "collectives_per_step": got["calls"],
+                    "shard": [o[key]["shard"] for o in ranks],
+                    "model_bytes": [o[key]["model_bytes"] for o in ranks],
+                    "one_card_model_bytes": want["model_bytes"]}
+    bc = {k: max(o["mamba2"]["bc_rel"].get(k, 0.0) for o in ranks)
+          for k in tpt_bc(tpt_cfg("mamba2-780m", "float32"))}
+    res["mamba2"]["bc_grad_rel"] = bc
+    res["mamba2"]["bc_one_card_order_rel"] = order["mamba2_bc"]
+    if not bc or max(bc.values()) > res["mamba2"]["grad_gate"]:
+        failed.append(f"mamba2 B/C gradients {bc} > "
+                      f"{res['mamba2']['grad_gate']}")
+    res["mamba2"]["reduced"] = reduced("mamba2-780m")
+    res["bf16"] = {
+        "batch": list(TPT_BF16_BATCH),
+        "ranks": [{"state_bytes": o["bf16"]["state_bytes"],
+                   "model_bytes": o["bf16"]["model_bytes"],
+                   "step_wall_ms": [h[2] for h in o["bf16"]["hist"]],
+                   "profiled_step": o["bf16"]["profiled_step"],
+                   "collectives_per_step": o["bf16"]["calls"][-1]}
+                  for o in ranks],
+        "whole_state_bytes": r0["bf16"]["whole_state_bytes"],
+        "one_card": {"state_bytes": one["bf16"]["state_bytes"],
+                     "model_bytes": one["bf16"]["model_bytes"],
+                     "step_wall_ms": [h[2] for h in one["bf16"]["hist"]],
+                     "profiled_step": one["bf16"]["profiled_step"]},
+        "loss": [h[0] for h in r0["bf16"]["hist"]],
+        "one_card_loss": [h[0] for h in one["bf16"]["hist"]]}
+    if not all(np.isfinite(res["bf16"]["loss"])):
+        failed.append(f"bf16 losses {res['bf16']['loss']}")
+    res["rank_laps_s"] = [o["laps_s"] for o in ranks]
+    print(f"tp_train ({res['card']}): qwen3 f32 steps "
+          f"{[(r['loss_rel'], r['grad_norm_rel']) for r in res['qwen3']['steps']]}"
+          f", step-1 gradients {res['qwen3']['grad_rel_max']} "
+          f"({res['qwen3']['grad_rel_worst']}, gate "
+          f"{res['qwen3']['grad_gate']}); mamba2 "
+          f"{[(r['loss_rel'], r['grad_norm_rel']) for r in res['mamba2']['steps']]}"
+          f", gradients {res['mamba2']['grad_rel_max']}, B/C {bc} (gate "
+          f"{res['mamba2']['grad_gate']}); bf16 "
+          f"state bytes a rank {[r['state_bytes'] for r in res['bf16']['ranks']]}"
+          f" of {res['bf16']['whole_state_bytes']}", flush=True)
+    if failed:
+        emit({"phase": "tp_train", "failed": failed, **res})
+        raise AssertionError(f"phase tp_train failed: {failed}")
+    return res
+
+
 # -- main -----------------------------------------------------------------------
 
 PHASES = ("build,kernels,teacher,profile,serve,tokens,flash,prefill,batch,"
           "ssd,ssm_prefill,ssm_serve,gather,emem,vm,mesh,vm_bench,archs,"
-          "encdec,train,mesh_train,paper,dryrun,tp_serve,tp_mixers")
+          "encdec,train,mesh_train,paper,dryrun,tp_serve,tp_mixers,"
+          "tp_train")
 #: the kernels' libraries, sources and the TPU kernels they replace
 KERNELS = (
     ("paged_kv_write", "k1", "src/repro_torch/kernels/paged_decode/csrc/"
@@ -6347,6 +6808,8 @@ def main(argv=None) -> int:
         for name, n in tpm_launches.items():
             launches[name] += n
         emit({"phase": "tp_mixers", "seconds": time.monotonic() - t, **res})
+    if "tp_train" in phases:
+        run("tp_train", phase_tp_train, dev)
 
     def ms(key):
         # the device time of timed(); the event-timed loop where neither

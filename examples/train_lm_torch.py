@@ -5,7 +5,8 @@ Default: a ~10M-param qwen3-family model for 30 steps.  Scale to the
 --batch 16 --seq 512 (identical code path, longer wall time).  Runs on
 ``cuda`` unless ``--device`` names another device.  Under ``torchrun`` it
 trains on a ``(world / tp, tp)`` ("data", "model") mesh of the ranks
-(``nccl`` on ``cuda``, ``gloo`` with ``--device cpu``).
+(``nccl`` on ``cuda``, ``gloo`` with ``--device cpu``), each tp rank on its
+split form of the model at tp > 1.
 
 Run: PYTHONPATH=src python examples/train_lm_torch.py [--steps N]
      [--ckpt-dir D] [--device cpu]

@@ -18,9 +18,11 @@ through the port's own paths on ``meta`` tensors, shapes without storage:
                rank body of ``parallel/paged_attention.py`` over this
                rank's block of pages.
 
-A serve step runs on the rank's shards of the weights (``Model.shard``,
+Every step runs on the rank's shards of the weights (``Model.shard``,
 the tensor-parallel split form: its attention heads, MLP columns,
-experts, Mamba2 heads and vocab block over "model"), every arch alike.
+experts, Mamba2 heads and vocab block over "model"), every arch alike: a
+train step through ``Trainer``, which gathers each leaf over the data
+axes only and takes the loss and gradients on the split form.
 
 The rank's rows are the global batch split over the data axes, or the
 whole batch where it does not split (the reference's replicated batch).
@@ -143,10 +145,11 @@ def build_step(cfg, shape: ShapeSpec, specs: dict, mesh, dp: tuple,
     """One rank's step of ``cfg`` at ``shape`` on ``mesh``, on meta
     tensors: ``(run, resident, extra)`` -- ``run()`` takes the step,
     ``resident`` holds what the rank keeps across steps (weights, state,
-    cache, batch), ``extra`` the record's fields.  A serve step (prefill,
-    decode) runs on the rank's shards of the weights (``Model.shard``:
-    its heads, MLP columns, experts, SSM heads, vocab block over
-    "model"); on a mesh whose "model" axis has one rank nothing splits.
+    cache, batch), ``extra`` the record's fields.  Every step runs on the
+    rank's shards of the weights (``Model.shard``: its heads, MLP columns,
+    experts, SSM heads, vocab block over "model"; a train step through
+    ``Trainer``, which splits its model at tp > 1); on a mesh whose
+    "model" axis has one rank nothing splits.
     Installs the mesh context; the caller clears it."""
     model = Model(cfg, device="meta")
     mesh_ctx.set_context(mesh, batch_axes=dp, tp_axis="model", kv_axes=dp)
@@ -154,9 +157,6 @@ def build_step(cfg, shape: ShapeSpec, specs: dict, mesh, dp: tuple,
     rows = _rows(shape.global_batch, n_dp)
     batch = {k: _meta(v, rows) for k, v in specs.items()}
     extra = {"params": model.param_count(), "rows_per_rank": rows}
-    if shape.kind != "train" and mesh_shape(mesh)["model"] > 1:
-        model = model.shard()
-    extra["split_form"] = model.tp_shard is not None
     if shape.kind == "train":
         m = microbatches or _auto_microbatches(
             cfg, shape.global_batch, shape.seq_len, n_dp)
@@ -164,8 +164,12 @@ def build_step(cfg, shape: ShapeSpec, specs: dict, mesh, dp: tuple,
         trainer = trainer_mod.Trainer(model, mesh, adamw.AdamWConfig(), tcfg)
         params, opt = trainer.init_state()
         extra["microbatches"] = m
+        extra["split_form"] = trainer.model.tp_shard is not None
         return (lambda: trainer.step_fn(params, opt, batch),
-                (model.param_tree(), params, opt, batch), extra)
+                (trainer.model.param_tree(), params, opt, batch), extra)
+    if mesh_shape(mesh)["model"] > 1:
+        model = model.shard()
+    extra["split_form"] = model.tp_shard is not None
     seq = shape.seq_len
     src = {"src_len": seq} if cfg.family == "encdec" else {}
     if shape.kind == "prefill":

@@ -7,7 +7,9 @@
 runs on ``cuda`` unless ``--device`` names another device.  Started by
 ``torchrun`` (``RANK`` and ``WORLD_SIZE`` in the environment) it trains on a
 ``(world / tp, tp)`` ("data", "model") mesh over the started group, ``nccl``
-on ``cuda`` and ``gloo`` only with ``--device cpu``:
+on ``cuda`` and ``gloo`` only with ``--device cpu``, each tp rank computing
+the step on its split form (its heads, MLP columns, experts, SSM heads and
+vocab block) at tp > 1:
 
   PYTHONPATH=src torchrun --nproc_per_node 4 -m repro_torch.launch.train \\
       --smoke --tp 2 --device cpu

@@ -125,8 +125,8 @@ def lm_loss(cfg: ModelConfig, params, batch: dict,
     :func:`repro_torch.models.transformer.lm_loss` takes it."""
     enc_out = encode(cfg, params, batch["embeds"], layers)
     x = decode_train(cfg, params, batch["tokens"], enc_out, layers)
-    logits = L.masked_logits(cfg, params["embed"], x)
-    return L.token_nll_loss(logits, batch["labels"], batch.get("mask"))
+    return L.lm_head_loss(cfg, params["embed"], x, batch["labels"],
+                          batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------

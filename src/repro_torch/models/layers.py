@@ -14,8 +14,12 @@ A tensor-parallel rank's split form holds its own shards of these tables
 its head, column and vocab counts from the weights it holds, and where
 they are a shard it sums its row-parallel output (``wo`` of self- and
 cross-attention, ``w_down``), its embedding, or gathers its logits over
-the mesh context's tp group.  Whole weights compute as on one device,
-under a context or not.
+the mesh context's tp group.  Under autograd (a train step on the split
+form) the replicated input of each split product enters its region
+through ``mesh_ctx.to_region``, whose gradient is summed over tp, and the
+loss is taken over the rank's vocab block (:func:`lm_head_loss`) without
+gathering the logits.  Whole weights compute as on one device, under a
+context or not.
 
 Logical axis names (the reference's):
   "layers"   -- stacked layer-period dimension
@@ -187,9 +191,18 @@ def attention_out(cfg: ModelConfig, p, out: torch.Tensor) -> torch.Tensor:
     return row_parallel_sum([(out @ wo, wo.shape[0], cfg.n_heads * cfg.hd)])
 
 
+def region_input(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the input of the attention ``p``: through
+    ``mesh_ctx.to_region`` where ``p`` holds a tensor-parallel rank's query
+    heads, whose work is then a region of the split form."""
+    split = p["wq"].shape[-1] < cfg.n_heads * cfg.hd
+    return mesh_ctx.to_region(x) if split else x
+
+
 def project(cfg: ModelConfig, p, name: str, x: torch.Tensor) -> torch.Tensor:
     """``x @ w<name>`` for ``name`` "q", "k" or "v", bias added where the
-    config has one: the heads ``p`` holds."""
+    config has one: the heads ``p`` holds.  ``x`` is the region's input
+    (:func:`region_input`)."""
     y = x @ p["w" + name]
     return y + p["b" + name] if cfg.qkv_bias else y
 
@@ -197,6 +210,7 @@ def project(cfg: ModelConfig, p, name: str, x: torch.Tensor) -> torch.Tensor:
 def qkv_projections(cfg: ModelConfig, p, x: torch.Tensor):
     """The projections of :func:`project_qkv`: x [B, S, d] -> q
     [B, S, H * hd], k/v [B, S, Hkv * hd], bias added."""
+    x = region_input(cfg, p, x)
     return tuple(project(cfg, p, name, x) for name in "qkv")
 
 
@@ -362,7 +376,8 @@ def cross_attention_block(cfg: ModelConfig, p, x: torch.Tensor,
     included."""
     b, s, _ = x.shape
     h = local_heads(cfg, p)[0]
-    q = project(cfg, p, "q", x).reshape(b, s, h, cfg.hd).transpose(1, 2)
+    q = project(cfg, p, "q", region_input(cfg, p, x)).reshape(
+        b, s, h, cfg.hd).transpose(1, 2)
     k, v = kv_cache
     out = full_attention(cfg, q, k, v, causal=False, window=None)
     return attention_out(cfg, p, out.transpose(1, 2).reshape(b, s, h * cfg.hd))
@@ -373,6 +388,7 @@ def encode_kv(cfg: ModelConfig, p, enc_out: torch.Tensor):
     heads ``p`` holds)."""
     b, s, _ = enc_out.shape
     hkv = local_heads(cfg, p)[1]
+    enc_out = region_input(cfg, p, enc_out)
     return tuple(project(cfg, p, name, enc_out).reshape(
         b, s, hkv, cfg.hd).transpose(1, 2) for name in "kv")
 
@@ -453,8 +469,11 @@ def swiglu(p, x: torch.Tensor) -> torch.Tensor:
 
 def mlp_block(p, x: torch.Tensor, d_ff: int) -> torch.Tensor:
     """SwiGLU of hidden width ``d_ff`` (:func:`row_parallel_sum`: a rank's
-    columns give a partial)."""
-    return row_parallel_sum([(swiglu(p, x), p["w_down"].shape[0], d_ff)])
+    columns give a partial, of ``x`` entered into their region)."""
+    held = p["w_down"].shape[0]
+    if held < d_ff:
+        x = mesh_ctx.to_region(x)
+    return row_parallel_sum([(swiglu(p, x), held, d_ff)])
 
 
 # ---------------------------------------------------------------------------
@@ -510,6 +529,50 @@ def masked_logits(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def vocab_nll(cfg: ModelConfig, p, x: torch.Tensor,
+              labels: torch.Tensor) -> torch.Tensor:
+    """Per-token ``logsumexp - gold`` [B, S] in f32 over a rank's vocab
+    block, never gathering the logits: the rank's f32 logits of ``x``
+    (entered into the region) with its padded columns at ``NEG_INF``, a
+    max all-reduce (no gradient) to shift them, then one sum all-reduce of
+    [sum of exponentials, gold logit] -- the gold from the rank whose block
+    holds the label, zero elsewhere.  The sum's gradient passes through to
+    every rank, so each takes its block's logits' gradient and the
+    region's input sums them."""
+    logits = unembed(cfg, p, mesh_ctx.to_region(x)).float()
+    n = logits.shape[-1]
+    lo = mesh_ctx.tp_index() * n
+    if cfg.vocab_padded != cfg.vocab_size:
+        col = torch.arange(lo, lo + n, device=logits.device)
+        logits = torch.where(col >= cfg.vocab_size, NEG_INF, logits)
+    m = mesh_ctx.tp_max(logits.amax(-1))
+    local = labels.long() - lo
+    mine = (local >= 0) & (local < n)
+    gold = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    part = torch.stack([torch.exp(logits - m[..., None]).sum(-1),
+                        torch.where(mine, gold, 0.0)])
+    sumexp, gold = mesh_ctx.tp_sum(part).unbind(0)
+    return torch.log(sumexp) + m - gold
+
+
+def lm_head_loss(cfg: ModelConfig, p, x: torch.Tensor, labels: torch.Tensor,
+                 mask=None) -> torch.Tensor:
+    """The masked next-token cross entropy of the final hidden states ``x``
+    against ``labels``: :func:`masked_logits` and :func:`token_nll_loss`
+    on whole embedding weights, :func:`vocab_nll` over a rank's vocab
+    block, reduced the same way."""
+    if not vocab_split(cfg, p):
+        return token_nll_loss(masked_logits(cfg, p, x), labels, mask)
+    return _masked_mean(vocab_nll(cfg, p, x, labels), mask)
+
+
+def _masked_mean(nll: torch.Tensor, mask) -> torch.Tensor:
+    if mask is None:
+        return nll.mean()
+    nll = nll * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
 def token_nll_loss(logits: torch.Tensor, labels: torch.Tensor,
                    mask=None) -> torch.Tensor:
     """Masked next-token cross entropy of f32 ``logits`` [B, S, V] against
@@ -520,11 +583,7 @@ def token_nll_loss(logits: torch.Tensor, labels: torch.Tensor,
     [B, S, V] mask."""
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
-    if mask is None:
-        return nll.mean()
-    nll = nll * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return _masked_mean(logz - gold, mask)
 
 
 def norm_defs(cfg: ModelConfig) -> dict:

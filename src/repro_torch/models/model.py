@@ -18,8 +18,10 @@ model over one rank's shards of the weights under the installed mesh
 context (its attention heads, MLP columns, experts, SSM heads and vocab
 block; ``tp_only``), which serves through the same entry points with one
 collective after each row-parallel product and one in each Mamba2 gated
-norm.  A model of whole weights under a context computes on them whole,
-as before.
+norm, and trains (:class:`repro_torch.train.trainer.Trainer` on a mesh
+with tp > 1): its loss and gradients are taken on the rank's shards,
+which :meth:`Model.whole_tree` gathers whole.  A model of whole weights
+under a context computes on them whole, as before.
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel import mesh_ctx
-from repro_torch.parallel.sharding import tp_shard_params
+from repro_torch.parallel.sharding import split_cuts, tp_shard_params
+from repro_torch.tree import flatten, unflatten
 
 
 def defs_for(cfg: ModelConfig) -> dict:
@@ -172,6 +175,30 @@ class Model(nn.Module):
                                    ctx.tp, ctx.tp_index)
         return self._over(cfg, _rebuild(self.params, tree), None,
                           (ctx.tp, ctx.tp_index))
+
+    def whole_tree(self) -> dict:
+        """The whole weights as a param tree: this model's own tensors, or,
+        for the split form, every tp rank's shards gathered over the
+        context's tp group and laid into their positions of the whole
+        leaves (a collective: every rank calls it)."""
+        if self.tp_shard is None:
+            return self.param_tree()
+        tp = self.tp_shard[0]
+        cuts = [flatten(split_cuts(self.cfg, self.axes(), self.shapes(), tp,
+                                   r)) for r in range(tp)]
+        shapes = flatten(self.shapes())
+        out = {}
+        with torch.no_grad():
+            for key, t in flatten(self.param_tree()).items():
+                if cuts[0][key].dim is None:
+                    out[key] = t.detach()
+                    continue
+                parts = mesh_ctx.tp_gather(t.detach())
+                whole = t.new_empty(shapes[key].shape)
+                for r in range(tp):
+                    cuts[r][key].put(whole, parts[r])
+                out[key] = whole
+        return unflatten(self.param_tree(), out)
 
     def periods(self):
         """Views of the stacked weights, made once: per period for a

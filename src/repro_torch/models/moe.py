@@ -26,7 +26,11 @@ does; it holds its block of the experts where tp divides them, else its
 ``mlp`` columns of every expert, and its columns of the shared expert.  It
 computes the buffers of the experts it holds (or its columns of all of
 them), combines its partial output and sums it over the tp group in one
-call; a piece the rank holds whole is added after that sum.
+call; a piece the rank holds whole is added after that sum.  Under
+autograd the block's input enters the split pieces' region through
+``mesh_ctx.to_region`` (:func:`_region_inputs`): the router, whole on
+every rank but read only by the rank's share of the combine, and the
+shared gate then take partial gradients there.
 """
 from __future__ import annotations
 
@@ -96,6 +100,21 @@ def _experts(cfg: ModelConfig, p, buf: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, p["w_down"])
 
 
+def _region_inputs(cfg: ModelConfig, p, xt):
+    """The block's input [T, d] to the routed experts (router included) and
+    to the shared experts (what :func:`_combine` takes as ``xt``): through
+    ``mesh_ctx.to_region``, once, for the pieces ``p`` holds a
+    tensor-parallel rank's share of, as it is for a piece it holds
+    whole."""
+    de = cfg.d_expert or cfg.d_ff
+    e_loc, de_loc = p["w_down"].shape[:2]
+    routed = e_loc * de_loc < cfg.n_experts * de
+    shared = bool(cfg.n_shared_experts) and \
+        p["shared"]["w_down"].shape[0] < cfg.n_shared_experts * de
+    xr = mesh_ctx.to_region(xt) if routed or shared else xt
+    return (xr if routed else xt), (xr if shared else xt)
+
+
 def _combine(cfg: ModelConfig, p, xt, out_buf, flat_e, pos, keep, weights):
     """Gather each kept (token, choice) row of ``out_buf`` (dropped pairs
     and the experts ``p`` does not hold read row 0 and are zeroed), weight,
@@ -115,7 +134,8 @@ def _combine(cfg: ModelConfig, p, xt, out_buf, flat_e, pos, keep, weights):
     de = cfg.d_expert or cfg.d_ff
     parts = [(y, e_loc * de_loc, cfg.n_experts * de)]
     if cfg.n_shared_experts:
-        parts.append((_shared(p, xt), p["shared"]["w_down"].shape[0],
+        parts.append((_shared(p, xt),
+                      p["shared"]["w_down"].shape[0],
                       cfg.n_shared_experts * de))
     return row_parallel_sum(parts)
 
@@ -156,7 +176,8 @@ def moe_block_scatter(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     t = b * s
     xt = x.reshape(t, d)
     cap = moe_capacity(cfg, t)
-    _, weights, idx = _route(cfg, p, xt)
+    xr, xs = _region_inputs(cfg, p, xt)
+    _, weights, idx = _route(cfg, p, xr)
 
     flat_e = idx.reshape(t * k)                                # [T*k]
     pos = _scatter_positions(flat_e, e)
@@ -165,9 +186,9 @@ def moe_block_scatter(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     row = torch.where(keep, flat_e, e)
     col = torch.where(keep, pos, 0)
     buf = torch.zeros((e + 1, cap, d), dtype=x.dtype, device=x.device)
-    buf[row, col] = xt.repeat_interleave(k, dim=0)
+    buf[row, col] = xr.repeat_interleave(k, dim=0)
     out_buf = _experts(cfg, p, buf[:e])
-    y = _combine(cfg, p, xt, out_buf, flat_e, pos, keep, weights)
+    y = _combine(cfg, p, xs, out_buf, flat_e, pos, keep, weights)
     return y.reshape(b, s, d)
 
 
@@ -179,7 +200,8 @@ def moe_block_sorted(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     t = b * s
     xt = x.reshape(t, d)
     cap = moe_capacity(cfg, t)
-    _, weights, idx = _route(cfg, p, xt)
+    xr, xs = _region_inputs(cfg, p, xt)
+    _, weights, idx = _route(cfg, p, xr)
 
     flat_e = idx.reshape(t * k)                                # [T*k]
     pos, order, starts, counts = _sorted_positions(flat_e, e)
@@ -190,9 +212,9 @@ def moe_block_sorted(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     gidx = starts[:, None] + cols[None, :]                     # [E, C]
     valid = cols[None, :] < counts[:, None]
     tok_choice = order[gidx.clamp(0, t * k - 1)]               # [E, C]
-    buf = torch.where(valid[..., None], xt[tok_choice // k], 0)
+    buf = torch.where(valid[..., None], xr[tok_choice // k], 0)
     out_buf = _experts(cfg, p, buf)
-    y = _combine(cfg, p, xt, out_buf, flat_e, pos, keep, weights)
+    y = _combine(cfg, p, xs, out_buf, flat_e, pos, keep, weights)
     return y.reshape(b, s, d)
 
 

@@ -25,7 +25,11 @@ dt, conv channels and state are its own and whose B/C are those of the
 groups its heads read.  On a rank's heads the gated norm's mean of
 squares over the whole inner width is one ``tp_sum`` of the rank's
 partial sum, and ``w_out``'s rows give a partial sum of the output,
-summed by ``layers.row_parallel_sum``: two collectives a layer.
+summed by ``layers.row_parallel_sum``: two collectives a layer.  Under
+autograd the block's input enters the rank's region through
+``mesh_ctx.to_region`` and the sum of squares is summed both ways
+(``mesh_ctx.tp_sum_in_region``): the B and C columns, whole on every rank
+but read only by its heads, take partial gradients there.
 """
 from __future__ import annotations
 
@@ -81,13 +85,15 @@ def gated_norm(cfg: ModelConfig, p, y: torch.Tensor,
                z: torch.Tensor) -> torch.Tensor:
     """``rms_norm(y * silu(z), norm_w)`` over the whole inner width.  On a
     rank's channels the mean of squares is the tp sum of the rank's
-    partial sums over ``d_inner``: one ``tp_sum`` of [..., 1]."""
+    partial sums over ``d_inner``: one ``tp_sum_in_region`` of [..., 1]
+    (each rank's channels read it, so its gradient is summed too)."""
     x = y * F.silu(z.float()).to(y.dtype)
     w = p["norm_w"]
     if w.shape[-1] >= cfg.d_inner:
         return rms_norm(x, w, cfg.rms_eps)
     xf = x.float()
-    var = mesh_ctx.tp_sum((xf * xf).sum(-1, keepdim=True)) / cfg.d_inner
+    var = mesh_ctx.tp_sum_in_region(
+        (xf * xf).sum(-1, keepdim=True)) / cfg.d_inner
     return (xf * torch.rsqrt(var + cfg.rms_eps)).to(x.dtype) * w
 
 
@@ -159,6 +165,8 @@ def ssm_block(cfg: ModelConfig, p, x: torch.Tensor,
     b, s, _ = x.shape
     pd, n = cfg.ssm_head_dim, cfg.ssm_state
     di, h, g = local_widths(cfg, p)
+    if di < cfg.d_inner:                 # a rank's heads: their region
+        x = mesh_ctx.to_region(x)
     z, xbc_pre, dt = _split(di, g * n, in_proj(p, x))
     xbc = F.silu(causal_conv(xbc_pre, p["conv_w"], p["conv_b"]))
     xs = xbc[..., :di].reshape(b, s, h, pd)

@@ -221,11 +221,12 @@ def lm_loss(cfg: ModelConfig, params, batch: dict,
             periods=None) -> torch.Tensor:
     """Masked next-token cross entropy (labels already shifted by the data
     pipeline), softmax in f32 with the padded vocab at ``NEG_INF``
-    (:func:`repro_torch.models.layers.token_nll_loss`).  To take gradients
-    pass no ``periods``: views made without grad carry none."""
+    (:func:`repro_torch.models.layers.lm_head_loss`: over a rank's vocab
+    block on the split form).  To take gradients pass no ``periods``:
+    views made without grad carry none."""
     x = forward(cfg, params, batch, periods)
-    logits = L.masked_logits(cfg, params["embed"], x)
-    return L.token_nll_loss(logits, batch["labels"], batch.get("mask"))
+    return L.lm_head_loss(cfg, params["embed"], x, batch["labels"],
+                          batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------

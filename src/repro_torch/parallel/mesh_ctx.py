@@ -12,13 +12,30 @@ name several mesh dims, one group per slice of the other dims, made with
 ``tp_axis``, plus its own index in each: over ``kv_axes`` row-major, as the
 reference's ``_flat_axis_index``.  The collectives the port calls go
 through :func:`all_to_all`, :func:`all_reduce` and :func:`all_gather`,
-which count their calls in :data:`CALLS`; :func:`tp_sum` and
-:func:`tp_gather` are the two the tensor-parallel split form
+which count their calls in :data:`CALLS`; :func:`tp_sum`,
+:func:`tp_gather`, :func:`to_region`, :func:`tp_sum_in_region` and
+:func:`tp_max` are the ones the tensor-parallel split form
 (:meth:`repro_torch.models.model.Model.shard`) calls over the installed
 context's tp group.  gloo moves CUDA tensors only for ``all_reduce`` and
 ``broadcast``: over a gloo group :func:`all_gather` stages a CUDA tensor
 through a host copy (counted the same), so two processes can share one
 card over gloo while their compute stays on it.
+
+Under autograd (a train step on the split form) the tp collectives carry
+the three gradient rules of a tensor-parallel region, each a
+``torch.autograd.Function`` over ``all_reduce`` alone:
+
+  * :func:`to_region` -- the copy of a replicated activation into the
+    region (before a column-split product): the identity forward, the
+    gradient summed over tp backward (each rank's is its share's partial);
+  * :func:`tp_sum` -- the row-parallel sum out of it (``wo``, ``w_down``,
+    the MoE combine, Mamba2's ``w_out``, the vocab-split embedding): summed
+    forward, the gradient passed through backward;
+  * :func:`tp_sum_in_region` -- a sum read back inside the region (the
+    gated norm's sum of squares, read by the rank's channels only): summed
+    both ways.
+
+Without grad they are the in-place sums the serving paths call.
 """
 from __future__ import annotations
 
@@ -179,10 +196,80 @@ def tp_index() -> int:
     return _tp_context().tp_index
 
 
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _summed(x: torch.Tensor, group) -> torch.Tensor:
+    """A new tensor: ``x`` summed over ``group``."""
+    return all_reduce(x.clone(memory_format=torch.contiguous_format), "sum",
+                      group)
+
+
+class _ToRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.group), None
+
+
+class _RowSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _summed(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumInRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _summed(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.group), None
+
+
 def tp_sum(x: torch.Tensor) -> torch.Tensor:
     """``x`` summed over the context's tp group (a row-parallel product's
-    partial sums), in place."""
-    return all_reduce(x.contiguous(), "sum", _tp_context().tp_group)
+    partial sums): in place, or under autograd a new tensor whose gradient
+    passes through unsummed."""
+    group = _tp_context().tp_group
+    if _tracked(x):
+        return _RowSum.apply(x, group)
+    return all_reduce(x.contiguous(), "sum", group)
+
+
+def to_region(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the input of a tp region: the identity, whose gradient is
+    summed over the context's tp group (no collective without autograd)."""
+    if not _tracked(x):
+        return x
+    return _ToRegion.apply(x, _tp_context().tp_group)
+
+
+def tp_sum_in_region(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the context's tp group where the sum is read
+    inside the region: under autograd its gradient is summed too."""
+    group = _tp_context().tp_group
+    if _tracked(x):
+        return _SumInRegion.apply(x, group)
+    return all_reduce(x.contiguous(), "sum", group)
+
+
+def tp_max(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s elementwise max over the context's tp group, a new tensor
+    carrying no gradient."""
+    return all_reduce(x.detach().clone(memory_format=torch.contiguous_format),
+                      "max", _tp_context().tp_group)
 
 
 def tp_gather(x: torch.Tensor) -> torch.Tensor:

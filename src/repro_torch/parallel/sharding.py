@@ -253,6 +253,91 @@ def _block(size: int, tp: int, index: int):
     return index * n, (index + 1) * n
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class Cut:
+    """What a tensor-parallel rank's split form holds of one whole leaf:
+    the positions ``index`` (a span ``[lo, hi)`` where ``index`` is None)
+    along ``dim``, or the whole leaf where ``dim`` is None.  ``summed``
+    marks a whole leaf read inside a split region -- by the rank's share of
+    the work only (``q_norm``/``k_norm`` of split heads, the router and the
+    shared gate of a split MoE block) -- whose gradient is partial on each
+    rank and summed over tp; a whole leaf read on the replicated residual
+    stream (the norms, an unsplit embedding) takes its full gradient on
+    every rank.  A cut leaf's gradient is its positions' share: where
+    several ranks hold a position (a KV head at tp > Hkv, the B and C
+    columns of a Mamba2 mixer) each holds a partial of it."""
+    dim: int | None = None
+    lo: int = 0
+    hi: int = 0
+    index: torch.Tensor | None = None
+    summed: bool = False
+
+    def span(self) -> tuple[int, int] | None:
+        """``(lo, hi)`` where the positions are contiguous, else None."""
+        if self.index is None:
+            return self.lo, self.hi
+        idx = self.index
+        if idx.numel() and bool((idx == torch.arange(
+                int(idx[0]), int(idx[0]) + idx.numel())).all()):
+            return int(idx[0]), int(idx[0]) + idx.numel()
+        return None
+
+    def take(self, t: torch.Tensor) -> torch.Tensor:
+        """The rank's part of the whole leaf ``t``: ``t`` itself where the
+        cut is whole, else a new contiguous tensor."""
+        if self.dim is None:
+            return t
+        if self.index is None:
+            t = t.narrow(self.dim, self.lo, self.hi - self.lo)
+        else:
+            t = t.index_select(self.dim, self.index.to(t.device))
+        return t.clone(memory_format=torch.contiguous_format)
+
+    def put(self, whole: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
+        """``part`` written into its positions of ``whole``, in place."""
+        if self.dim is None:
+            return whole.copy_(part)
+        if self.index is None:
+            whole.narrow(self.dim, self.lo, self.hi - self.lo).copy_(part)
+            return whole
+        return whole.index_copy_(self.dim, self.index.to(whole.device), part)
+
+
+WHOLE = Cut()
+
+
+def _ssm_cuts(cfg, shapes: dict, tp: int, index: int) -> dict:
+    """The cuts of :func:`ssm_shard` for a Mamba2 mixer's leaves (of
+    ``shapes``: one layer's, or stacked over periods)."""
+    heads = head_shard(cfg.ssm_heads, cfg.ssm_groups, tp, index)
+    if heads is None:
+        return {name: WHOLE for name in shapes}
+    h_lo, h_hi, g_lo, g_hi = heads
+    pd, n = cfg.ssm_head_dim, cfg.ssm_state
+    di, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+
+    def span(base, lo, hi, width):
+        return torch.arange(base + lo * width, base + hi * width)
+    x = span(0, h_lo, h_hi, pd)
+    bc = torch.cat([span(di, g_lo, g_hi, n), span(di + gn, g_lo, g_hi, n)])
+    conv = torch.cat([x, bc])
+    cols = {"w_in": torch.cat([x, di + conv, span(2 * di + 2 * gn, h_lo,
+                                                  h_hi, 1)]),
+            "conv_w": conv, "conv_b": conv}
+    out = {}
+    for name, t in shapes.items():
+        last = len(t.shape) - 1
+        if name == "w_out":
+            out[name] = Cut(last - 1, h_lo * pd, h_hi * pd)
+        elif name == "norm_w":
+            out[name] = Cut(last, h_lo * pd, h_hi * pd)
+        elif name in cols:
+            out[name] = Cut(last, index=cols[name])
+        else:                            # a_log, dt_bias, d_skip: per head
+            out[name] = Cut(last, h_lo, h_hi)
+    return out
+
+
 def ssm_shard(cfg, p: dict, tp: int, index: int) -> dict:
     """Tp rank ``index``'s shard of a Mamba2 mixer's weights ``p`` (one
     layer's, or stacked over periods on a leading dim): its block of SSM
@@ -268,37 +353,13 @@ def ssm_shard(cfg, p: dict, tp: int, index: int) -> dict:
     ``ssm_inner`` would hand a rank a contiguous block of those dims
     instead; this cut is the one whose rank computes whole heads.  Where
     tp does not divide the heads, everything stays whole."""
-    heads = head_shard(cfg.ssm_heads, cfg.ssm_groups, tp, index)
-    if heads is None:
-        return p
-    h_lo, h_hi, g_lo, g_hi = heads
-    pd, n = cfg.ssm_head_dim, cfg.ssm_state
-    di, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
-
-    def span(base, lo, hi, width):
-        return torch.arange(base + lo * width, base + hi * width)
-    x = span(0, h_lo, h_hi, pd)
-    bc = torch.cat([span(di, g_lo, g_hi, n), span(di + gn, g_lo, g_hi, n)])
-    conv = torch.cat([x, bc])
-    cols = {"w_in": torch.cat([x, di + conv, span(2 * di + 2 * gn, h_lo,
-                                                  h_hi, 1)]),
-            "conv_w": conv, "conv_b": conv, "norm_w": x}
-    out = {}
-    for name, t in p.items():
-        if name == "w_out":
-            t = t.narrow(-2, h_lo * pd, (h_hi - h_lo) * pd)
-        elif name in cols:
-            t = t.index_select(-1, cols[name].to(t.device))
-        else:                            # a_log, dt_bias, d_skip: per head
-            t = t.narrow(-1, h_lo, h_hi - h_lo)
-        out[name] = t.clone(memory_format=torch.contiguous_format)
-    return out
+    cuts = _ssm_cuts(cfg, p, tp, index)
+    return {name: cuts[name].take(t) for name, t in p.items()}
 
 
-def tp_shard_params(cfg, params: dict, axes: dict, tp: int,
-                    index: int) -> dict:
-    """Tp rank ``index``'s shards of a model's ``params`` (nested dicts of
-    tensors, with their logical ``axes`` tree) under ``tp_only``: each
+def split_cuts(cfg, axes: dict, shapes: dict, tp: int, index: int) -> dict:
+    """Tp rank ``index``'s :class:`Cut` of every leaf of a model's weights
+    (their logical ``axes`` and ``shapes`` trees) under ``tp_only``: each
     ``q_heads`` / ``kv_heads`` dim (flat ``H * hd`` columns) to the rank's
     whole heads (:func:`head_shard`), ``mlp`` to its column block,
     ``experts`` to its block of experts where tp divides them (the
@@ -306,14 +367,12 @@ def tp_shard_params(cfg, params: dict, axes: dict, tp: int,
     assigns "model" once), ``vocab`` to its row or column block, a Mamba2
     mixer (``mamba``) to its SSM heads (:func:`ssm_shard`); the router
     stays whole (top-k needs every expert's score), as do ``embed``, the
-    norms and every dim tp does not divide.  Decoders and enc-dec alike
-    (its encoder, self- and cross-attention split their heads as a
-    decoder's).  Returns new contiguous tensors (the whole ones can be
-    freed)."""
+    norms and every dim tp does not divide.  A whole leaf of a split
+    attention or MoE table is ``summed`` (its region's)."""
     heads = head_shard(cfg.n_heads, cfg.n_kv_heads, tp, index)
     hd = cfg.hd
 
-    def cut(name, ax, size, used):
+    def cut(name, ax, size):
         if ax in ("q_heads", "kv_heads"):
             if heads is None:
                 return None
@@ -321,21 +380,55 @@ def tp_shard_params(cfg, params: dict, axes: dict, tp: int,
             return lo * hd, hi * hd
         if ax == "experts" and name == "router":
             return None
-        if ax in ("mlp", "experts", "vocab") and "tp" not in used:
+        if ax in ("mlp", "experts", "vocab"):
             return _block(size, tp, index)
         return None
 
-    def leaf(name, t, ax):
-        used: set = set()
+    def leaf(name, ax, shape):
         for i, a in enumerate(ax):
-            span = cut(name, a, t.shape[i], used)
+            span = cut(name, a, shape[i])
             if span is not None:
-                used.add("tp")
-                t = t.narrow(i, span[0], span[1] - span[0])
-        return t.clone(memory_format=torch.contiguous_format) if used else t
+                return Cut(i, *span)
+        return WHOLE
 
-    def walk(tree, ax_tree):
-        return {k: ssm_shard(cfg, v, tp, index) if k == "mamba"
-                else walk(v, ax_tree[k]) if isinstance(v, dict)
-                else leaf(k, v, ax_tree[k]) for k, v in tree.items()}
-    return walk(params, axes)
+    def region(table: dict) -> dict:
+        """Mark the whole leaves of a split region's table."""
+        def split(t):
+            return t.dim is not None
+        marks = {}
+        if "wq" in table and split(table["wq"]):
+            marks = {k: True for k in ("q_norm", "k_norm")}
+        if "router" in table:
+            marks = {"router": split(table["w_down"]),
+                     "shared_gate": "shared" in table
+                     and split(table["shared"]["w_down"])}
+        return {k: dataclasses.replace(v, summed=True)
+                if marks.get(k) and v.dim is None else v
+                for k, v in table.items()}
+
+    def walk(ax_tree, shape_tree):
+        out = {k: _ssm_cuts(cfg, shape_tree[k], tp, index) if k == "mamba"
+               else walk(ax_tree[k], shape_tree[k])
+               if isinstance(shape_tree[k], dict)
+               else leaf(k, ax_tree[k], tuple(shape_tree[k].shape))
+               for k in shape_tree}
+        return region(out)
+    return walk(axes, shapes)
+
+
+def tp_shard_params(cfg, params: dict, axes: dict, tp: int,
+                    index: int) -> dict:
+    """Tp rank ``index``'s shards of a model's ``params`` (nested dicts of
+    tensors, with their logical ``axes`` tree) under ``tp_only``: each
+    leaf cut as :func:`split_cuts` says (whole heads, MLP columns, experts
+    or their columns, Mamba2 heads, the vocab block; the router, the
+    norms and every dim tp does not divide whole).  Decoders and enc-dec
+    alike (its encoder, self- and cross-attention split their heads as a
+    decoder's).  Returns new contiguous tensors where a leaf is cut (the
+    whole ones can be freed)."""
+    cuts = split_cuts(cfg, axes, params, tp, index)
+
+    def walk(tree, cut_tree):
+        return {k: walk(v, cut_tree[k]) if isinstance(v, dict)
+                else cut_tree[k].take(v) for k, v in tree.items()}
+    return walk(params, cuts)

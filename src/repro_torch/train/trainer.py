@@ -13,33 +13,47 @@ parameters are written into the model's tensors in place, so views of them
 stay valid.
 
 ``Trainer(model, mesh, ...)`` trains on a ``DeviceMesh`` over a started
-process group, as explicit FSDP in DTensor's idiom:
+process group, as explicit FSDP and tensor parallelism in DTensor's idiom,
+computing what the reference's GSPMD computes on each rank:
 
   * state -- params, ``mu``, ``nu`` and ``master`` are DTensors placed by
-    the rule set's specs (:func:`make_state_specs`); every rank draws the
-    full weights from the seed, as one device does, and keeps its shard,
-    so every mesh starts from the same bits;
-  * forward -- the model's own tensors hold the gathered weights: after
-    each update every leaf is gathered (``full_tensor``) into them, and
-    the loss runs on them with grad on over the rank's rows of the batch,
-    the contiguous block of its flat index over ``dp_axes`` (as
-    ``P("data")`` places them);
-  * gradients -- each comes back as ``DTensor.from_local(g, mesh,
-    [Partial("avg") on each dp dim, Replicate() on the others])``,
-    redistributed to its parameter's placements (a reduce-scatter).  The
-    tp ranks of one dp coordinate compute the same rows, so their
-    gradients are replicated, not partial;
+    the rule set's specs (:func:`make_state_specs`: d_model over the dp
+    axes, heads, MLP columns, experts, vocab and ``ssm_inner`` over the tp
+    axis); every rank draws the full weights from the seed, as one device
+    does, and keeps its shard, so every mesh starts from the same bits;
+  * forward -- on a tp axis of more than one rank ``trainer.model`` is the
+    tensor-parallel split form (:meth:`Model.shard
+    <repro_torch.models.model.Model.shard>`: the rank's heads, MLP
+    columns, experts, SSM heads and vocab block), under a mesh context the
+    trainer installs; at tp 1 it is the whole model.  After each update
+    every leaf is gathered over the dp axes only and written into the
+    model's tensor (:class:`_Leaf`): the state's tp block where it is the
+    split form's cut, else that one leaf gathered over tp too (an
+    all-reduce of the blocks), cut and freed -- the KV heads at tp > Hkv,
+    whose split form holds the one whole head its query heads read; a
+    Mamba2 mixer's ``w_in`` and conv, whose split form holds an index set
+    of columns; the router, whole in the split form.  The loss runs on
+    them with grad on over the rank's rows of the batch (the contiguous
+    block of its flat index over ``dp_axes``, as ``P("data")`` places
+    them); the split blocks' collectives carry their gradients
+    (``mesh_ctx.to_region``, ``tp_sum``, ``tp_sum_in_region``) and the
+    loss is taken over the rank's vocab block;
+  * gradients -- each leaf's goes back to its state placement: summed over
+    tp where the split form holds a partial of it (a whole leaf read
+    inside a split region, ``sharding.Cut.summed``; a cut the state does
+    not hold as its block, scattered into the whole leaf first), then
+    ``DTensor.from_local(g, mesh, [Partial("avg") on each dp dim, the
+    state's tp placement])`` redistributed to the parameter's placements
+    (a reduce-scatter over dp; over a dp dim of one rank the identity,
+    with no collective, as the gather is);
   * loss -- weighted by the rank's share of the unmasked tokens (times the
     dp size), so that the dp average is the global masked mean one device
     takes, and all-reduced over the flat dp group, so every rank reports
     the same loss.
 
 At one rank every gather and reduction is the identity and a step equals
-the one-device step bit for bit.  Tensor-parallel compute (heads and MLP
-columns split over the tp axis, an all-reduce after ``wo`` and
-``w_down``) is not here: tp ranks hold their shards of the state and
-gather them as the dp shards are gathered.  The collectives a mesh step
-issues are counted in :data:`CALLS`.
+the one-device step bit for bit.  The trainer's collectives are counted
+in :data:`CALLS`, the model's in ``mesh_ctx.CALLS``.
 """
 from __future__ import annotations
 
@@ -50,7 +64,7 @@ from typing import Any, Callable
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.device import torch_dtype
 from repro_torch.launch.mesh import mesh_shape
@@ -60,10 +74,13 @@ from repro_torch.parallel import mesh_ctx
 from repro_torch.parallel import sharding as shd
 from repro_torch.tree import flatten, tree_map, unflatten
 
-#: collectives of mesh steps since :func:`reset_calls`: leaves gathered,
-#: gradients reduce-scattered, all-reduces (token count, loss, the global
-#: norm's one)
-CALLS = {"gather": 0, "reduce_scatter": 0, "all_reduce": 0}
+#: collectives of mesh steps since :func:`reset_calls`: leaves gathered
+#: over dp, gradients reduce-scattered over dp (neither over a dp group of
+#: one rank), all-reduces (token count,
+#: loss, the global norm's one), and the all-reduces over tp of the leaves
+#: and gradients the split form does not hold as the state's block
+CALLS = {"gather": 0, "reduce_scatter": 0, "all_reduce": 0,
+         "tp_all_reduce": 0}
 
 
 def reset_calls() -> None:
@@ -145,13 +162,70 @@ def _token_count(batch: dict) -> torch.Tensor:
     return torch.tensor(float(labels.numel()), device=labels.device)
 
 
+@dataclasses.dataclass(frozen=True)
+class _Leaf:
+    """How one parameter's split-form tensor comes from its state DTensor
+    and how its gradient goes back.  ``tp_dim`` is the tensor dim the
+    state splits over the tp axis (None: whole over tp) and ``block`` the
+    rank's span of it; ``mode`` is "same" (the dp-gathered block is the
+    split form's), "local" (the state is whole over tp: cut it), or
+    "gather" (the state's block is not the cut: gather the leaf over tp,
+    cut, free)."""
+    cut: shd.Cut
+    tp_dim: int | None
+    block: tuple[int, int]
+    mode: str
+    shape: tuple[int, ...]
+
+
+def _leaf_plan(model: Model, params_sh: dict, mesh, tcfg: TrainConfig,
+               tp_index: int) -> dict:
+    """{path: :class:`_Leaf`} of every parameter.  A leaf's mode is the
+    same on every tp rank (its collectives are), "same" only where every
+    rank's cut is its block."""
+    names = tuple(mesh.mesh_dim_names)
+    tp_mesh_dim = names.index(tcfg.tp_axis)
+    tp = mesh_shape(mesh)[tcfg.tp_axis]
+    cuts = [flatten(shd.split_cuts(model.cfg, model.axes(), model.shapes(),
+                                   tp, r)) for r in range(tp)]
+    plan = {}
+    shapes = flatten(model.shapes())
+    for key, sh in flatten(params_sh).items():
+        shape = tuple(shapes[key].shape)
+        place = sh.placements[tp_mesh_dim]
+        tp_dim = place.dim if tp > 1 and isinstance(place, Shard) else None
+
+        def block(r):
+            if tp_dim is None:
+                return (0, 0)
+            n = shape[tp_dim] // tp
+            return r * n, (r + 1) * n
+
+        def held(r):
+            cut = cuts[r][key]
+            return (cut.dim is None and tp_dim is None) or (
+                cut.dim == tp_dim and cut.span() == block(r))
+        if all(held(r) for r in range(tp)):
+            mode = "same"
+        elif tp_dim is None:
+            mode = "local"
+        else:
+            mode = "gather"
+        plan[key] = _Leaf(cuts[tp_index][key], tp_dim, block(tp_index),
+                          mode, shape)
+    return plan
+
+
 def make_train_step(model: Model, ocfg: adamw.AdamWConfig, mesh,
                     tcfg: TrainConfig) -> tuple[Callable, Any, Any]:
     """``(step, params_shardings, opt_shardings)``: ``step(params,
     opt_state, batch) -> (params, opt_state, metrics)`` updates ``params``
     in place and returns them, metrics hold tensors (``loss``,
     ``grad_norm``, ``lr``).  Without a mesh the shardings are None; on one
-    the batch is the rank's rows (:meth:`Trainer.place_batch`)."""
+    the batch is the rank's rows (:meth:`Trainer.place_batch`), ``model``
+    is the split form at tp > 1 (the whole model at tp 1), and the step
+    writes the updated weights into its tensors; ``step.refresh(params)``
+    writes a state's weights there."""
     if mesh is None:
         def step_fn(params, opt_state, batch):
             loss, grads = _loss_and_grads(model, tcfg, params, batch)
@@ -171,28 +245,85 @@ def make_train_step(model: Model, ocfg: adamw.AdamWConfig, mesh,
     opt_sh = tree_map(lambda s: shd.NamedSharding.from_spec(mesh, s),
                       opt_m if has_master else opt_nm)
     dp = tuple(tcfg.dp_axes)
-    n_dp = math.prod(mesh_shape(mesh)[a] for a in dp)
+    names = tuple(mesh.mesh_dim_names)
+    sizes = mesh_shape(mesh)
+    n_dp = math.prod(sizes[a] for a in dp)
+    # the dp dims of more than one rank: a gather or a reduction over one
+    # rank is the identity, and takes no collective (gloo moves CUDA
+    # tensors by all_reduce and broadcast only)
+    live_dp = tuple(a for a in dp if sizes[a] > 1)
     dp_group = mesh_ctx.axes_group(mesh, dp)
-    grad_placements = tuple(Partial("avg") if name in dp else Replicate()
-                            for name in mesh.mesh_dim_names)
+    tp_group = mesh.get_group(tcfg.tp_axis)
+    tp_index = mesh_ctx.flat_index(mesh, (tcfg.tp_axis,))
+    plan = _leaf_plan(model, params_sh, mesh, tcfg, tp_index)
 
-    def reduce(g, p):
-        CALLS["reduce_scatter"] += 1
-        return DTensor.from_local(g, mesh, grad_placements,
-                                  run_check=False).redistribute(
+    def tp_sum(x):
+        CALLS["tp_all_reduce"] += 1
+        return mesh_ctx.all_reduce(x, "sum", tp_group)
+
+    def whole_of_block(block, leaf):
+        """The whole leaf from each tp rank's block: an all-reduce of the
+        blocks laid into zeros (gloo's CUDA all_gather would stage through
+        the host)."""
+        whole = block.new_zeros(leaf.shape)
+        whole.narrow(leaf.tp_dim, leaf.block[0],
+                     leaf.block[1] - leaf.block[0]).copy_(block)
+        return tp_sum(whole)
+
+    @torch.no_grad()
+    def refresh(params):
+        """Every leaf of the state ``params`` gathered over the dp axes and
+        cut to the split form, into the model's tensors (a collective:
+        every rank calls it, leaf by leaf in flattening order)."""
+        dest = flatten(model.param_tree())
+        for key, p in flatten(params).items():
+            leaf = plan[key]
+            whole_over_dp = tuple(Replicate() if names[i] in live_dp else pl
+                                  for i, pl in enumerate(p.placements))
+            if whole_over_dp != tuple(p.placements):
+                CALLS["gather"] += 1
+                p = p.redistribute(mesh, whole_over_dp)
+            block = p.to_local()
+            if leaf.mode == "gather":
+                block = whole_of_block(block, leaf)
+            dest[key].copy_(block if leaf.mode == "same"
+                            else leaf.cut.take(block))
+            del block
+
+    def reduce(key, g, p):
+        leaf = plan[key]
+        if leaf.cut.dim is not None and leaf.mode != "same":
+            whole = g.new_zeros(leaf.shape)
+            g = tp_sum(leaf.cut.put(whole, g))
+        elif leaf.cut.summed:
+            g = tp_sum(g.clone(memory_format=torch.contiguous_format))
+        if leaf.tp_dim is not None and leaf.mode != "same":
+            g = g.narrow(leaf.tp_dim, leaf.block[0],
+                         leaf.block[1] - leaf.block[0])
+        tp_place = Replicate() if leaf.tp_dim is None else Shard(leaf.tp_dim)
+        placements = tuple(
+            Partial("avg") if name in live_dp
+            else tp_place if name == tcfg.tp_axis else Replicate()
+            for name in names)
+        CALLS["reduce_scatter"] += bool(live_dp)
+        return DTensor.from_local(g.contiguous(), mesh, placements,
+                                  run_check=False, shape=p.shape,
+                                  stride=p.stride()).redistribute(
                                       mesh, p.placements)
 
     def step_fn(params, opt_state, batch):
-        full = model.param_tree()
+        split = model.param_tree()
         count = _token_count(batch)
         total = count.clone()
         dist.all_reduce(total, group=dp_group)
         weight = count * n_dp / torch.clamp(total, min=1.0)
-        loss, grads = _loss_and_grads(model, tcfg, full, batch, weight)
+        loss, grads = _loss_and_grads(model, tcfg, split, batch, weight)
         dist.all_reduce(loss, group=dp_group)
         loss = loss / n_dp
         CALLS["all_reduce"] += 3
-        grads = tree_map(reduce, grads, params)
+        flat_p = flatten(params)
+        grads = unflatten(params, {k: reduce(k, g, flat_p[k])
+                                   for k, g in flatten(grads).items()})
         new, opt_state, metrics = adamw.update(ocfg, grads, opt_state,
                                                params)
         del grads
@@ -200,26 +331,22 @@ def make_train_step(model: Model, ocfg: adamw.AdamWConfig, mesh,
             tree_map(lambda p, n: p.to_local().copy_(n.to_local()), params,
                      new)
         del new
-        _gather_into(full, params)
+        refresh(params)
         return params, opt_state, dict(metrics, loss=loss)
 
+    step_fn.refresh = refresh
     return step_fn, params_sh, opt_sh
-
-
-@torch.no_grad()
-def _gather_into(full: dict, params: dict) -> None:
-    """Every DTensor leaf of ``params`` gathered whole into the matching
-    tensor of ``full``, leaf by leaf in flattening order (a collective:
-    every rank calls it in the same order)."""
-    dest = flatten(full)
-    for key, p in flatten(params).items():
-        CALLS["gather"] += 1
-        dest[key].copy_(p.full_tensor())
 
 
 @dataclasses.dataclass
 class Trainer:
-    """Orchestrates init, placement on the mesh, stepping and metrics."""
+    """Orchestrates init, placement on the mesh, stepping and metrics.  On
+    a mesh whose tp axis has more than one rank, ``model`` becomes its
+    tensor-parallel split form (its tensors the rank's shards, refreshed
+    from the state after every step; :meth:`Model.whole_tree
+    <repro_torch.models.model.Model.whole_tree>` gathers them whole), and
+    the trainer installs a mesh context over ``mesh`` where none over it
+    is installed."""
     model: Model
     mesh: Any = None
     ocfg: adamw.AdamWConfig = adamw.AdamWConfig()
@@ -230,6 +357,16 @@ class Trainer:
                 and self.mesh.device_type != self.model.device.type:
             raise ValueError(f"a {self.mesh.device_type} mesh cannot train a "
                              f"model on {self.model.device}")
+        if self.mesh is not None \
+                and mesh_shape(self.mesh)[self.tcfg.tp_axis] > 1:
+            ctx = mesh_ctx.get_context()
+            if ctx is None or ctx.mesh is not self.mesh \
+                    or ctx.tp_axis != self.tcfg.tp_axis:
+                mesh_ctx.set_context(self.mesh,
+                                     batch_axes=self.tcfg.dp_axes,
+                                     tp_axis=self.tcfg.tp_axis)
+            if self.model.tp_shard is None:
+                self.model = self.model.shard()
         self.step_fn, self.params_sh, self.opt_sh = make_train_step(
             self.model, self.ocfg, self.mesh, self.tcfg)
         self._step = 0
@@ -237,13 +374,23 @@ class Trainer:
     def init_state(self, seed: int = 0):
         """(params, opt): the model's weights drawn anew from ``seed`` (its
         own tensors, now requiring grad; on a mesh each rank's shards of
-        them) and a fresh optimizer state."""
-        params = self.model.init(seed)
+        them, the split form's tensors cut from them) and a fresh
+        optimizer state."""
+        if self.mesh is None:
+            params = self.model.init(seed)
+            self.model.params.requires_grad_(True)
+            return params, adamw.init(self.ocfg, params)
+        if self.model.tp_shard is None:
+            whole = self.model.init(seed)
+        else:
+            whole = Model(self.model.cfg, self.model.device,
+                          seed).param_tree()
+        with torch.no_grad():
+            params = tree_map(lambda p, sh: sh.place(p.detach()), whole,
+                              self.params_sh)
+        del whole
+        self.step_fn.refresh(params)
         self.model.params.requires_grad_(True)
-        if self.mesh is not None:
-            with torch.no_grad():
-                params = tree_map(lambda p, sh: sh.place(p.detach()), params,
-                                  self.params_sh)
         return params, adamw.init(self.ocfg, params)
 
     def place_batch(self, batch: dict) -> dict:
@@ -264,16 +411,17 @@ class Trainer:
         """Load ``{"params", "opt"}`` of ``ckpt``'s step (the newest by
         default); the next step is numbered after it.  On one device the
         parameters go into the model's tensors, in place; on a mesh the
-        state is placed by the trainer's shardings and the parameters
-        gathered into the model's tensors.  Returns (params, opt, step)."""
-        params = self.model.param_tree()
+        state is placed by the trainer's shardings and written into the
+        model's tensors as a step writes it.  Returns (params, opt,
+        step)."""
         self.model.params.requires_grad_(True)
         if self.mesh is not None:
             like = {"params": self.params_sh, "opt": self.opt_sh}
             tree, step = ckpt.restore(like, step, shardings=like)
-            _gather_into(params, tree["params"])
+            self.step_fn.refresh(tree["params"])
             self._step = step
             return tree["params"], tree["opt"], step
+        params = self.model.param_tree()
         like = {"params": params, "opt": adamw.init(self.ocfg, params)}
         tree, step = ckpt.restore(like, step)
         with torch.no_grad():

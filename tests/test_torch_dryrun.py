@@ -347,3 +347,28 @@ def test_microbatches_and_probes_match_reference_literals():
             assert (p.unroll_layers, p.attn_chunk_q, p.attn_chunk_k) == \
                 (True, 2048, 2048)
             assert p.ssd_probe_unroll == (cfg.family != "hybrid")
+
+
+def test_train_cell_on_the_split_form(fake_group):
+    """A train_4k-shaped cell of qwen3-0.6b's smoke config (8 rows of 64
+    tokens) on a (2, 4) mesh of a fake group of 8 ranks: the trainer's
+    step runs on the split form (its heads, MLP columns and vocab block at
+    tp 4), almost none of its FLOPs are computed alike on every tp rank
+    against the tp-1 twin (the step on whole weights), and its peak bytes
+    a device fall below the twin's; its collectives are all-reduces over
+    tp beside the dp gathers and reduce-scatters."""
+    from repro_torch.configs.shapes import ShapeSpec
+    cfg = tcfgs.config_for_shape(tcfgs.get_smoke_config("qwen3-0.6b"),
+                                 "train_4k")
+    shape = ShapeSpec("train_8x64", 64, 8, "train")
+    fake_group(8)
+    mesh = M.make_mesh((2, 4), ("data", "model"), device="meta")
+    rec = D.measure(cfg, shape, lambda c: tcfgs.input_specs(
+        c, "train_4k", reduced=(8, 64)), mesh, ("data",))
+    twin = rec["tp1_twin"]
+    assert rec["split_form"] and rec["rows_per_rank"] == 4
+    assert abs(rec["replicated_over_tp"]) <= 0.05, rec["replicated_over_tp"]
+    assert rec["probes"][1]["peak_bytes"] < twin["peak_bytes"]
+    assert rec["probes"][1]["flops"] < twin["flops"] / 2
+    counts = rec["probes"][1]["coll_count_by_op"]
+    assert counts.get("all-reduce", 0) > 0 and counts.get("all-gather", 0) > 0

@@ -387,9 +387,10 @@ def whole(tree) -> dict:
 
 def _train_on_meshes(workdir) -> dict:
     """Training on each of TRAIN_MESHES and on TRAIN_POD (dp over "pod"
-    and "data"); the (4, 1) state saved to ``workdir/ckpt`` by the async
-    saver and restored by elastic_restore onto the (2, 2) mesh's
-    shardings."""
+    and "data"), with the model's weights gathered whole (at tp > 1 its
+    tensors are the rank's split form: ``Model.whole_tree``); the (4, 1)
+    state saved to ``workdir/ckpt`` by the async saver and restored by
+    elastic_restore onto the (2, 2) mesh's shardings."""
     from torch.distributed.tensor import DTensor
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.train.checkpoint import CheckpointManager
@@ -401,7 +402,7 @@ def _train_on_meshes(workdir) -> dict:
         trainer, params, opt, hist = train(mesh)
         trainers[shape] = trainer
         out[shape] = {"hist": hist,
-                      "model": whole(trainer.model.param_tree()),
+                      "model": whole(trainer.model.whole_tree()),
                       "state": whole({"params": params, "opt": opt}),
                       "local": {k: tuple(v.to_local().shape)
                                 for k, v in flatten(params).items()}}
@@ -411,7 +412,7 @@ def _train_on_meshes(workdir) -> dict:
             ckpt.wait()
     mesh = make_mesh(TRAIN_POD, ("pod", "data", "model"), "cpu")
     trainer, params, _, hist = train(mesh, dp_axes=("pod", "data"))
-    out["pod"] = {"hist": hist, "model": whole(trainer.model.param_tree()),
+    out["pod"] = {"hist": hist, "model": whole(trainer.model.whole_tree()),
                   "local": {k: tuple(v.to_local().shape)
                             for k, v in flatten(params).items()}}
     tr = trainers[(2, 2)]
