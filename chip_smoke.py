@@ -273,6 +273,34 @@ JSON line with its seconds (phase archs one per arch):
                  state bytes, wall and device ms and collectives a step
                  beside one card's (``phase_tp_train``).
 
+26. fp8_kv    -- the fp8 KV cache (``kv_dtype="float8_e4m3fn"``, run after
+                 phase batch): (a) K1's write into fp8 pages byte for byte
+                 the reference's cast (to nearest even, NaN past 464) over
+                 every bf16 value and 2^16 f32 ones, the least |x| written
+                 as NaN printed; at the main path's shapes rows past the
+                 range, masked, empty, read-only and unmapped rows byte
+                 for byte against the plain version, and K1's decode entry
+                 byte for byte the cast of its own rotated rows, its K
+                 bytes that differ from plain counted, each one e4m3 step;
+                 (b) K2 and K4 over fp8 caches against their plain
+                 versions at the main paths' shapes and split edges, K6,
+                 K7 and the host movers byte for byte on fp8 pages, and
+                 K1, K2, K4 times beside their plain versions and the
+                 halved-K/V bounds (phases kernels' and flash's timing on
+                 fp8 caches); (c) phase tokens' trace in f32 at
+                 CUT_LAYERS's depth with fp8 KV and a spill tier: the
+                 kernels' tokens and telemetry equal the plain path's
+                 (where they part, K1's writes that round otherwise than
+                 plain are found and printed); (d) the serve trace cut
+                 to FP8_AGREE_REQUESTS requests in bf16 at full depth
+                 with fp8 KV through K1 and K2 (once per layer and decode
+                 step), the tokens' agreement with the plain path on the
+                 same requests (where each uid parts), decode-step wall
+                 and device ms, KV bytes a token; (e) the batch layout at
+                 CUT_LAYERS's depth with fp8 KV through K4 (once per
+                 layer and decode step) on FP8_BATCH_REQUESTS requests,
+                 f32 tokens equal to the plain path's.
+
 Then it prints the kernels' JSON line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the script exits non-zero without a CUDA device or without the
@@ -683,7 +711,7 @@ def check_shard(x, sid, n_shards, window, use_vm, err, what):
         for impl in ("fused", "composed")}
     torch.cuda.synchronize()
     f, c = outs["fused"], outs["composed"]
-    if not (torch.equal(f[3], c[3]) and torch.equal(f[4], c[4])):
+    if not (same_pages(f[3], c[3]) and same_pages(f[4], c[4])):
         raise AssertionError(f"K1 pages differ from plain: {what} sid={sid}")
     # K1's TPU-function entry alone (the fused impl runs its decode entry)
     bt, fr = ((x["bt"], x["fr"]) if use_vm else
@@ -691,7 +719,7 @@ def check_shard(x, sid, n_shards, window, use_vm, err, what):
     old = K.paged_kv_write(x["k_new"], x["v_new"], kp.clone(), vp.clone(), bt,
                            x["lengths"], fr, x["wm"], (sid, n_shards, 0))
     torch.cuda.synchronize()
-    if not (torch.equal(old[0], c[3]) and torch.equal(old[1], c[4])):
+    if not (same_pages(old[0], c[3]) and same_pages(old[1], c[4])):
         raise AssertionError(f"K1 paged_kv_write differs from plain: {what} "
                              f"sid={sid}")
     for name, a, r in zip("acc m l".split(), f[:3], c[:3]):
@@ -702,7 +730,7 @@ def check_shard(x, sid, n_shards, window, use_vm, err, what):
         if not bool((dlt <= tol).all()):
             raise AssertionError(f"K2 {name} differs from plain by {e}: "
                                  f"{what} sid={sid}")
-    if n_shards == 1 and torch.equal(f[3], kp):
+    if n_shards == 1 and same_pages(f[3], kp):
         raise AssertionError(f"K1 wrote nothing: {what}")
     return f
 
@@ -764,7 +792,17 @@ K2_EDGE_PAGES = ((PS, MAX_LP), (256, 2))
 def bits(t):
     """A tensor's raw bits, for bit-for-bit comparisons."""
     import torch
-    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+    return t.view({1: torch.uint8, 2: torch.int16}.get(t.element_size(),
+                                                      torch.int32))
+
+
+def same_pages(a, b) -> bool:
+    """Pages equal: fp8 ones byte for byte (NaN included), others as
+    ``torch.equal`` holds them."""
+    import torch
+    if a.element_size() == 1:
+        return torch.equal(bits(a), bits(b))
+    return torch.equal(a, b)
 
 
 def qkv_case(x, norm: bool, g=G, seed=31):
@@ -773,7 +811,7 @@ def qkv_case(x, norm: bool, g=G, seed=31):
     with row 6's current page unmapped; random norm weights, or none."""
     import torch
     rng = np.random.default_rng(seed)
-    dev, dtype = x["kp"].device, x["kp"].dtype
+    dev, dtype = x["kp"].device, x["q"].dtype
     d, ps = x["kp"].shape[3], x["kp"].shape[1]
 
     def t(shape, scale=1.0):
@@ -1653,16 +1691,14 @@ def p_rounding_fail_share(q, k, v, want):
 
 def time_flash(dev):
     """Kernel, plain and library times at the main paths' shapes in bf16:
-    K3 causal at B=8, Hq=16, Hkv=8, S=512, D=128 (the prefill's), K4 at
-    B=8, Hkv=8, G=2, S=512, D=128 with the ragged lengths of phase 6 (the
-    batch serving path's).  Each cycles over copies of its inputs larger
-    than the 50 MB L2 together, as every layer finds its K/V cold."""
+    K3 causal at B=8, Hq=16, Hkv=8, S=512, D=128 (the prefill's), K4 as
+    :func:`time_k4` times it.  Each cycles over copies of its inputs
+    larger than the 50 MB L2 together, as every layer finds its K/V
+    cold."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as K3
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    from repro_torch.kernels.paged_decode import flash as K4
-    from repro_torch.kernels.paged_decode import flash_ops
     out = {}
     fa = [fa_case(53 + i, torch.bfloat16, dev) for i in range(4)]
     it = itertools.count()
@@ -1691,34 +1727,62 @@ def time_flash(dev):
     pairs = int(np.tril(np.ones((sq, skv), bool), skv - sq).sum()) * b * hq
     k3_ops = 4 * d * pairs
     k3_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    t_bytes, t_ops = k3_bytes / HBM_BYTES_PER_S, k3_ops / BF16_FLOPS_PER_S
+    out["k3_bound_ms"] = max(t_bytes, t_ops) * 1e3
+    out["k3_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    out["k3_bytes"], out["k3_ops"] = k3_bytes, k3_ops
+    out.update(time_k4(dev))
+    return out
+
+
+def time_k4(dev, kv_dtype=None):
+    """K4 at B=8, Hkv=8, G=2, S=512, D=128 with the ragged lengths of phase
+    6 (the batch serving path's), q in bf16 and the caches in bf16 or
+    ``kv_dtype`` (the reference's cast), beside its plain version, SDPA
+    (bf16 caches only: it takes no fp8 K/V) and the least time the card
+    could take (each attended K/V row read once at its dtype's bytes, q
+    read and the output written in bf16, the lengths, (m, l) in f32).
+    Cycles over 8 copies, past the 50 MB L2."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_decode import flash as K4
+    from repro_torch.kernels.paged_decode import flash_ops
+    from repro_torch.models import layers as L
+    out = {}
     fd = [fd_case(59 + i, torch.bfloat16, dev) for i in range(8)]
+    if kv_dtype is not None:
+        fd = [(q, L.cast_kv(k, kv_dtype), L.cast_kv(v, kv_dtype), ln, ln_np)
+              for q, k, v, ln, ln_np in fd]
+    it = itertools.count()
+
+    def pick(xs):
+        return xs[next(it) % len(xs)]
     lengths_np = fd[0][4]
     qg = [(x[0].reshape(B, HKV, G, D), x[1], x[2], x[3]) for x in fd]
     out["k4"] = timed(lambda: K4.flash_decode(*pick(qg)))
     out["k4_plain"] = timed(lambda: flash_ops.decode_attention_partial(
         *pick(fd)[:4], use_kernel=False), iters=20)
-    pos = torch.arange(fd[0][1].shape[2], device=dev)
-    masks = [(pos[None, :] < x[3][:, None].long())[:, None, None, :]
-             for x in fd]
-    lib = [(x[0][:, :, None], x[1], x[2], m) for x, m in zip(fd, masks)]
+    if kv_dtype is None:
+        pos = torch.arange(fd[0][1].shape[2], device=dev)
+        masks = [(pos[None, :] < x[3][:, None].long())[:, None, None, :]
+                 for x in fd]
+        lib = [(x[0][:, :, None], x[1], x[2], m) for x, m in zip(fd, masks)]
 
-    def library():
-        q4, k4, v4, mask = pick(lib)
-        F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
-                                       enable_gqa=True)
-    out["k4_library"] = timed(library)
+        def library():
+            q4, k4, v4, mask = pick(lib)
+            F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                           enable_gqa=True)
+        out["k4_library"] = timed(library)
     out["k4_blocks"] = B * HKV * K4.n_splits(fd[0][1].shape[2])
-    es = fd[0][1].element_size()
+    es_kv, es_q = fd[0][1].element_size(), fd[0][0].element_size()
     attended = int(np.minimum(lengths_np, fd[0][1].shape[2]).sum())
-    k4_bytes = (2 * attended * HKV * D * es + 2 * B * HKV * G * D * es
-                + 4 * B + 2 * B * HKV * G * 4)
-    k4_ops = 4 * G * D * HKV * attended
-    for name, nbytes, ops, rate in (("k3", k3_bytes, k3_ops, BF16_FLOPS_PER_S),
-                                    ("k4", k4_bytes, k4_ops, F32_FLOPS_PER_S)):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
-        out[f"{name}_bound_ms"] = max(t_bytes, t_ops) * 1e3
-        out[f"{name}_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        out[f"{name}_bytes"], out[f"{name}_ops"] = nbytes, ops
+    nbytes = (2 * attended * HKV * D * es_kv + 2 * B * HKV * G * D * es_q
+              + 4 * B + 2 * B * HKV * G * 4)
+    ops = 4 * G * D * HKV * attended
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
+    out["k4_bound_ms"] = max(t_bytes, t_ops) * 1e3
+    out["k4_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    out["k4_bytes"], out["k4_ops"] = nbytes, ops
     return out
 
 
@@ -3203,8 +3267,9 @@ ARCHS_LAYERS = {"granite-3-2b": 8, "h2o-danube-1.8b": 8,
                 "qwen2-moe-a2.7b": 8, "qwen2-72b": 8, "mixtral-8x7b": 8,
                 "jamba-v0.1-52b": 8, "qwen2-vl-7b": 8}
 #: the serve phase's trace settings at this many requests, drawn in each
-#: arch's vocabulary (3: the script's whole run keeps within its limit)
-ARCHS_REQUESTS = 3
+#: arch's vocabulary (2, 92 decode steps: the script's whole run keeps
+#: within its limit)
+ARCHS_REQUESTS = 2
 #: the teacher's steps, on pages of 4 slots, so that a sequence's history
 #: spans frames of both emulated shards (the oracle's other order): 8, a
 #: history of 8 or more positions over two frames or more
@@ -6590,9 +6655,393 @@ def phase_tp_train(dev):
 
 # -- main -----------------------------------------------------------------------
 
+# -- phase fp8_kv --------------------------------------------------------------
+
+#: the reference's fp8 KV cache dtype (``ModelConfig.kv_dtype``)
+FP8 = "float8_e4m3fn"
+#: rows of phase (a)'s new K/V scaled past e4m3's range (|x| > 464 -> NaN)
+FP8_OVER_ROWS, FP8_OVER_SCALE = (0, 3), 300.0
+#: phase (d): the requests of the trace cut that the kernels and the plain
+#: path both serve at full depth (2: 92 decode steps, where 4 take 314)
+FP8_AGREE_REQUESTS = 2
+#: phase (e): the requests of the trace on the batch layout (314 decode
+#: steps, where phase batch's 8 take 651)
+FP8_BATCH_REQUESTS = 4
+#: f32 values around e4m3fn's edges for K1's sweep: its largest value 448,
+#: the round-to-NaN threshold 464 and the first value past it, 480, the
+#: least normal 2^-6 and subnormal 2^-9 and half of it, signed zeros,
+#: infinities and NaN
+FP8_EDGES = (448.0, 463.9999, 464.0, 464.0001, 479.0, 480.0, 1e6, 2.0 ** -6,
+             2.0 ** -9, 2.0 ** -10, 1.5 * 2.0 ** -10, 0.0, float("inf"),
+             float("nan"))
+
+
+def fp8_pages(x):
+    """``x`` (a :func:`kernel_case`) with its pages cast to fp8 as the
+    reference casts them."""
+    import torch
+    from repro_torch.models import layers as L
+    x = dict(x)
+    for name in ("kp", "vp"):
+        x[name] = L.cast_kv(x[name], torch.float8_e4m3fn)
+    return x
+
+
+def fp8_one_step(a, b):
+    """Every fp8 byte of ``a`` equal to ``b``'s or its neighbour: the same
+    sign and magnitude codes one apart (adjacent e4m3 values)."""
+    import torch
+    a, b = a.int(), b.int()
+    return bool((((a ^ b) & 0x80) == 0).all()) and \
+        bool(((a - b).abs() <= 1).all())
+
+
+def fp8_sweep(dev):
+    """K1's ``paged_kv_write`` into fp8 pages against its plain version
+    (``ref.write_kv``, the reference's cast) over every bf16 value and
+    over 2^16 f32 values (log-uniform magnitudes 2^-16..2^10 of both signs
+    and FP8_EDGES), the new K rows and their negations as V: pages byte for
+    byte.  Returns the least |x| whose write was NaN and the largest whose
+    write was finite (the overflow threshold as the card rounds it)."""
+    import torch
+    from repro_torch.kernels.paged_decode import kernel as K
+    from repro_torch.kernels.paged_decode import ref
+    rng = np.random.default_rng(43)
+    n = 65536
+    f32 = (rng.choice([-1.0, 1.0], n) * np.exp2(rng.uniform(-16, 10, n))
+           ).astype(np.float32)
+    f32[:2 * len(FP8_EDGES)] = np.array(FP8_EDGES + tuple(
+        -e for e in FP8_EDGES), np.float32)
+    cases = {"bfloat16": torch.arange(-32768, 32768, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16), "float32": torch.tensor(f32)}
+    rows = n // (HKV * D)
+    i32 = dict(dtype=torch.int32, device=dev)
+    bt = torch.arange(rows, **i32)[:, None]
+    lengths = torch.ones(rows, **i32)
+    fr = torch.zeros(rows, dtype=torch.bool, device=dev)
+    wm = torch.ones(rows, dtype=torch.bool, device=dev)
+    out = {}
+    for name, vals in cases.items():
+        k = vals.to(dev).reshape(rows, HKV, D)
+        pages = [torch.zeros((rows, PS, HKV, D), dtype=torch.float8_e4m3fn,
+                             device=dev) for _ in range(4)]
+        K.paged_kv_write(k, -k, pages[0], pages[1], bt, lengths, fr, wm,
+                         (0, 1, 0))
+        ref.write_kv(k, -k, pages[2], pages[3], lengths, bt, fr, wm, sid=0,
+                     n_shards=1, max_pages=1)
+        torch.cuda.synchronize()
+        for got, want in ((pages[0], pages[2]), (pages[1], pages[3])):
+            if not torch.equal(bits(got), bits(want)):
+                bad = int((bits(got) != bits(want)).sum())
+                raise AssertionError(f"K1 fp8 write differs from the "
+                                     f"reference's cast in {bad} bytes "
+                                     f"({name} rows)")
+        written = bits(pages[0][:, 0]).reshape(-1)
+        mag = k.reshape(-1).float().abs()
+        nan = ((written & 0x7F) == 0x7F) & ~torch.isnan(mag)
+        out[name] = {"least_nan_abs": mag[nan].min().item(),
+                     "largest_finite_abs": mag[~nan & ~torch.isnan(mag)]
+                     .max().item(), "nan_written": int(nan.sum())}
+    return out
+
+
+def fp8_write_checks(dev, err):
+    """K1 on fp8 pages at the main path's shapes, f32 and bf16 inputs, 1
+    and 2 emulated shards: ``paged_kv_write`` with rows FP8_OVER_ROWS past
+    the range, a masked (5), an empty (1), a read-only (2) and an unmapped
+    (6) row, byte for byte against ``ref.write_kv`` (NaN written on both
+    sides); the decode entry ``paged_qkv_write`` (the q/k norm and rotary,
+    then the cast) against ``ref.qkv_write``: its pages byte for byte the
+    reference's cast of its own rotated k (``qk_rotate``, the same launch
+    with the write off) with the plain drops, V bytes as the plain
+    version's, q within QKV_RTOL; the fp8 K bytes that differ from the
+    plain version's (where the rotated values before the cast differ)
+    counted and each one e4m3 step away."""
+    import torch
+    from repro_torch.kernels.paged_decode import kernel as K
+    from repro_torch.kernels.paged_decode import ref
+    flips, written, nan_rows = {}, {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        x = fp8_pages(kernel_case(17, dtype, dev))
+        for norm in (True, False):
+            c = qkv_case(x, norm)
+            key = f"{str(dtype).split('.')[1]} qk_norm={norm}"
+            flips[key] = written[key] = 0
+            over = c["k"].clone(), c["v"].clone()
+            for r in FP8_OVER_ROWS:
+                for t in over:
+                    t[r] *= FP8_OVER_SCALE
+            for n_shards in (1, 2):
+                for sid in range(n_shards):
+                    kp = x["kp"][sid::n_shards].contiguous()
+                    vp = x["vp"][sid::n_shards].contiguous()
+                    shard = dict(sid=sid, n_shards=n_shards,
+                                 max_pages=x["max_pages"])
+                    where = f"{key} shard {sid} of {n_shards}"
+                    # the TPU kernel's function, rows past the range
+                    pk, pv, wk, wv = (t.clone() for t in (kp, vp, kp, vp))
+                    K.paged_kv_write(*over, pk, pv, c["bt"], x["lengths"],
+                                     x["fr"], x["wm"], (sid, n_shards, 0))
+                    ref.write_kv(*over, wk, wv, x["lengths"], c["bt"],
+                                 x["fr"], x["wm"], **shard)
+                    torch.cuda.synchronize()
+                    if not (same_pages(pk, wk) and same_pages(pv, wv)):
+                        raise AssertionError(f"K1 paged_kv_write on fp8 "
+                                             f"differs from plain: {where}")
+                    nan_rows += int(((bits(pk) & 0x7F) == 0x7F).sum())
+                    # the decode entry
+                    kk_, vk_, kq_, vq_ = (t.clone() for t in (kp, vp, kp, vp))
+                    q_k = K.paged_qkv_write(c["q"], c["k"], c["v"], kk_, vk_,
+                                            c["bt"], x["lengths"], x["fr"],
+                                            x["wm"], (sid, n_shards, 0),
+                                            **c["args"])
+                    q_p = ref.qkv_write(c["q"], c["k"], c["v"], kq_, vq_,
+                                        x["lengths"], c["bt"], x["fr"],
+                                        x["wm"], **shard, **c["args"])
+                    _, k_rot = K.qk_rotate(c["q"], c["k"], x["lengths"],
+                                           **c["args"])
+                    ek, ev = kp.clone(), vp.clone()
+                    ref.write_kv(k_rot, c["v"], ek, ev, x["lengths"],
+                                 c["bt"], x["fr"], x["wm"], **shard)
+                    torch.cuda.synchronize()
+                    if not (same_pages(kk_, ek) and same_pages(vk_, ev)):
+                        raise AssertionError(
+                            f"K1 paged_qkv_write's fp8 pages are not the "
+                            f"reference's cast of its rotated rows: {where}")
+                    if not same_pages(vk_, vq_):
+                        raise AssertionError(f"K1 fp8 V rows differ from "
+                                             f"plain: {where}")
+                    diff = bits(kk_) != bits(kq_)
+                    if not fp8_one_step(bits(kk_)[diff], bits(kq_)[diff]):
+                        raise AssertionError(f"K1 fp8 K bytes more than one "
+                                             f"e4m3 step from plain: {where}")
+                    flips[key] += int(diff.sum())
+                    written[key] += len(k1_writers(
+                        x, n_shards, sid, c["bt_np"])[0]) * HKV * D
+                    qkv_close(q_k, q_p, not norm, err, "fp8 q: " + where)
+    return {"nan_bytes_written": nan_rows, "k_flips": flips,
+            "k_written": written}
+
+
+def fp8_read_checks(dev, err):
+    """K2 (after K1's write, ``ops.paged_decode_shard``'s fused impl) over
+    fp8 pages at the main path's shapes, q in bf16, against its plain
+    version, 1 and 2 shards, windows None and 64, and at its split edges;
+    K4 over fp8 batch caches against its plain version, windows None and
+    64, and at its split edges: within the kernels' tolerances (the
+    values widened to f32 exactly on both sides)."""
+    import torch
+    from repro_torch.models import layers as L
+    x = fp8_pages(kernel_case(17, torch.bfloat16, dev))
+    for n_shards in (1, 2):
+        for window in (None, 64):
+            check_case(x, n_shards, window, err)
+    edge = fp8_pages(kernel_case(27, torch.bfloat16, dev, lengths=K2_EDGE_LENGTHS))
+    for window in (None, 40):
+        check_case(edge, 2, window, err, empty={1: (3,)})
+        check_k2_launch(edge, 2, window)
+    for seed, lengths in ((61, None), (62, FD_EDGE_LENGTHS[512])):
+        q, k, v, ln, ln_np = fd_case(seed, torch.bfloat16, dev,
+                                     lengths=lengths)
+        fd = (q, L.cast_kv(k, torch.float8_e4m3fn),
+              L.cast_kv(v, torch.float8_e4m3fn), ln, ln_np)
+        for window in (None, 64):
+            check_k4(fd, window, err)
+            if not same_k4_bits(fd, window):
+                raise AssertionError("K4: two fp8 launches differ")
+
+
+class Fp8FlipProbe:
+    """Wraps the paged decode step (``ops.paged_decode_shard``): each fused
+    call's K1 write is repeated by its plain version (``ref.qkv_write``) on
+    copies of the pages it was given, and the fp8 K bytes that differ are
+    counted (each within one e4m3 step; V bytes equal); the first few are
+    kept with the values before the cast on both sides."""
+
+    def __init__(self):
+        self.calls, self.flips, self.first = 0, 0, []
+
+    def __enter__(self):
+        from repro_torch.kernels.paged_decode import ops
+        self.ops, self.orig = ops, ops.paged_decode_shard
+        ops.paged_decode_shard = self._step
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.paged_decode_shard = self.orig
+
+    def _step(self, q, k_new, v_new, k_pages, v_pages, lengths, bt, fl, fr,
+              wm, *, impl, **kw):
+        import torch
+        from repro_torch.kernels.paged_decode import kernel as K
+        from repro_torch.kernels.paged_decode import ref
+        if impl != "fused" or k_pages.element_size() != 1:
+            return self.orig(q, k_new, v_new, k_pages, v_pages, lengths, bt,
+                             fl, fr, wm, impl=impl, **kw)
+        kp0, vp0 = k_pages.clone(), v_pages.clone()
+        out = self.orig(q, k_new, v_new, k_pages, v_pages, lengths, bt, fl,
+                        fr, wm, impl=impl, **kw)
+        ep = {n: kw.get(n, d) for n, d in (("q_norm", None), ("k_norm", None),
+                                           ("eps", 1e-6), ("rope_theta", None))}
+        ref.qkv_write(q, k_new, v_new, kp0, vp0, lengths,
+                      bt if kw["use_vm"] else None, fr, wm,
+                      sid=kw["sid"], n_shards=kw["n_shards"],
+                      max_pages=kw["max_pages"], **ep)
+        diff = bits(k_pages) != bits(kp0)
+        if not same_pages(v_pages, vp0) or not fp8_one_step(
+                bits(k_pages)[diff], bits(kp0)[diff]):
+            raise AssertionError(f"fp8 write of decode call {self.calls} "
+                                 "differs from plain beyond one e4m3 step")
+        n = int(diff.sum())
+        if n and len(self.first) < 4:
+            _, kk = K.qk_rotate(q, k_new, lengths, **ep)
+            _, pk = ref.qk_rotate(q, k_new, lengths, **ep)
+            d = (bits(kk) != bits(pk)).nonzero()[:4].tolist()
+            self.first.append({"call": self.calls, "flips": n, "rows": [
+                [b, h, e, kk[b, h, e].item(), pk[b, h, e].item()]
+                for b, h, e in d]})
+        self.flips += n
+        self.calls += 1
+        return out
+
+
+def fp8_agreement(kern: dict, plain: dict) -> dict:
+    """The kernels' and the plain path's tokens of one trace: the uids
+    whose tokens are identical, the share of positions that agree, and
+    each uid's first token where the two part (its length where they do
+    not)."""
+    toks = [(a, b) for u in plain for a, b in zip(kern[u], plain[u])]
+    return {"uids_identical": sum(kern[u] == plain[u] for u in plain),
+            "tokens_agree": sum(a == b for a, b in toks) / len(toks),
+            "first_parting": [next((i for i, (a, b) in enumerate(zip(
+                kern[u], plain[u])) if a != b), len(plain[u]))
+                for u in sorted(plain)],
+            "lengths": [len(plain[u]) for u in sorted(plain)]}
+
+
+def phase_fp8_kv(dev):
+    """The fp8 KV cache (``kv_dtype="float8_e4m3fn"``) through K1, K2 and
+    K4 (see the docstring's item 26).  Returns (main-path launches,
+    errors, times, the phase's line)."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as K3
+    from repro_torch.kernels.paged_decode import flash as K4
+    from repro_torch.kernels.paged_decode import gather as K67
+    from repro_torch.kernels.paged_decode import gather_ref
+    from repro_torch.kernels.paged_decode import kernel as K
+    from repro_torch.parallel.paged_attention import from_host, to_host
+    laps, t0 = {}, time.monotonic()
+
+    def lap(name):
+        laps[name] = time.monotonic() - t0 - sum(laps.values())
+    err = {"k1": 0.0, "k1_bits_differ": {}, "k2": 0.0, "k4": 0.0}
+    res = {"sweep": fp8_sweep(dev), "write": fp8_write_checks(dev, err),
+           "part_s": laps}
+    fp8_read_checks(dev, err)
+    # K6/K7 and the host movers copy fp8 pages' bytes
+    store = fp8_pages(kernel_case(19, torch.bfloat16, dev))["kp"]
+    flat = store.reshape(store.shape[0], PS, HKV * D)
+    ids = torch.tensor([3, 0, -1, 10 ** 6, 7], dtype=torch.int32, device=dev)
+    raw = bits(flat)                  # the plain versions on the bytes
+    for got, want in ((K67.gather_pages(flat, ids),
+                       gather_ref.gather_pages(raw, ids)),
+                      (K67.gather_slots(flat, ids),
+                       gather_ref.gather_slots(raw, ids)),
+                      (from_host(to_host(store), store.dtype, dev), store)):
+        if not torch.equal(bits(got), bits(want)):
+            raise AssertionError("fp8 pages did not move byte for byte")
+    lap("a_b_checks")
+    times = time_kernels(fp8_pages(kernel_case(17, torch.bfloat16, dev)))
+    times.update(time_k4(dev, torch.float8_e4m3fn))
+    lap("times")
+    cut = CUT_LAYERS["qwen3-0.6b"]
+    fp8 = dict(kv_dtype=FP8)
+    # (c) f32 compute, fp8 KV, at CUT_LAYERS's depth, a spill tier small
+    # enough to spill: the kernels' tokens against the plain path's; where
+    # they part, the kernels' run again with every K1 write held to plain
+    engine = dict(SERVE_ENGINE, host_frames=4, spill_frames=64)
+    trace = dict(SERVE_TRACE, n_requests=TOKENS_REQUESTS)
+
+    def f32_serve(paged_kernel):
+        return serve_model(dev, full_cfg(
+            "float32", kv_pool_pages=SERVE_POOL, n_layers=cut,
+            paged_kernel=paged_kernel, **fp8), engine, trace)
+    kern, st_k, _ = f32_serve("auto")
+    comp, st_c, _ = f32_serve("composed")
+    parted = sorted(u for u in kern if kern[u] != comp.get(u))
+    res["f32"] = {"reduced": reduced("qwen3-0.6b"), "requests": len(kern),
+                  "tokens_identical": not parted, "swapped": st_k["swapped"],
+                  "spill": {k: v for k, v in st_k.items() if "spill" in k}}
+    if parted:
+        with Fp8FlipProbe() as probe:
+            f32_serve("auto")
+        res["f32"].update(parted_uids=parted, decode_calls=probe.calls,
+                          k_flips=probe.flips, first_flips=probe.first)
+        emit({"phase": "fp8_kv", "f32_parted": res["f32"]})
+        raise AssertionError(f"f32 fp8-KV tokens differ, kernels vs plain, "
+                             f"for uids {parted}")
+    if st_k["telemetry"] != st_c["telemetry"]:
+        raise AssertionError("f32 fp8-KV telemetry differs")
+    if st_k["swapped"] < 1 or st_k["spill_out_pages"] < 1 \
+            or st_k["spill_in_pages"] < 1:
+        raise AssertionError(f"the f32 fp8 trace did not swap and spill: "
+                             f"{res['f32']}")
+    lap("c_f32_trace")
+    # (d) the main path: bf16 at full depth, fp8 KV, pooled, K1 and K2, on
+    # a cut of the trace (its swaps are (c)'s); the plain path's tokens on
+    # the same requests
+    n_attn = attn_layers(full_cfg("bfloat16"))
+    K.reset_launch_counts()
+    kern, stats, dt = serve(dev, "bfloat16", FP8_AGREE_REQUESTS, **fp8)
+    launches = dict(K.LAUNCHES)
+    for name, n in launches.items():
+        if n == 0 or n != n_attn * stats["decode_steps"]:
+            raise AssertionError(f"{name}: {n} fp8 launches for "
+                                 f"{stats['decode_steps']} decode steps")
+    plain, _, plain_dt = serve(dev, "bfloat16", FP8_AGREE_REQUESTS,
+                               paged_kernel="composed", **fp8)
+    cfg = full_cfg("bfloat16", **fp8)
+    kv_bytes = 2 * n_attn * cfg.n_kv_heads * cfg.hd
+    res["bf16"] = {"completed": len(kern), "decode_steps":
+                   stats["decode_steps"], "launches": dict(launches),
+                   "wall_s": dt, "plain_wall_s": plain_dt,
+                   "decode_step_ms": dt / stats["decode_steps"] * 1e3,
+                   "agreement": fp8_agreement(kern, plain),
+                   "kv_bytes_per_token": kv_bytes,
+                   "kv_bytes_per_token_bf16": 2 * kv_bytes,
+                   "step": phase_profile(dev, "pooled", steps=10, cfg=cfg)}
+    lap("d_bf16_trace")
+    # (e) the batch layout at CUT_LAYERS's depth through K4, f32: every
+    # decode step of every layer launches K4, the tokens the plain path's
+    batch = dict(kv_layout="batch", n_layers=cut, **fp8)
+    for mod in (K, K3, K4):
+        mod.reset_launch_counts()
+    kern_b, st_b, _ = serve(dev, "float32", FP8_BATCH_REQUESTS,
+                            attn_impl="pallas", **batch)
+    launches["flash_decode"] = K4.LAUNCHES["flash_decode"]
+    n_b = attn_layers(full_cfg("float32", **batch))
+    if launches["flash_decode"] != n_b * st_b["decode_steps"] or \
+            K.LAUNCHES["paged_gather_attend"]:
+        raise AssertionError(f"fp8 batch layout: {launches['flash_decode']} "
+                             f"K4 launches for {st_b['decode_steps']} steps")
+    plain_b, _, _ = serve(dev, "float32", FP8_BATCH_REQUESTS,
+                          attn_impl="ref", **batch)
+    if kern_b != plain_b:
+        bad = sorted(u for u in kern_b if kern_b[u] != plain_b.get(u))
+        raise AssertionError(f"f32 fp8 batch-layout tokens differ, kernels "
+                             f"vs plain, for uids {bad}")
+    res["batch"] = {"reduced": reduced("qwen3-0.6b"),
+                    "completed": len(kern_b),
+                    "decode_steps": st_b["decode_steps"],
+                    "flash_decode_launches": launches["flash_decode"],
+                    "f32_tokens_identical": len(kern_b)}
+    lap("e_batch")
+    return launches, err, times, res
+
+
 PHASES = ("build,kernels,teacher,profile,serve,tokens,flash,prefill,batch,"
-          "ssd,ssm_prefill,ssm_serve,gather,emem,vm,mesh,vm_bench,archs,"
-          "encdec,train,mesh_train,paper,dryrun,tp_serve,tp_mixers,"
+          "fp8_kv,ssd,ssm_prefill,ssm_serve,gather,emem,vm,mesh,vm_bench,"
+          "archs,encdec,train,mesh_train,paper,dryrun,tp_serve,tp_mixers,"
           "tp_train")
 #: the kernels' libraries, sources and the TPU kernels they replace
 KERNELS = (
@@ -6708,6 +7157,13 @@ def main(argv=None) -> int:
         t = time.monotonic()
         launches["flash_decode"], res = phase_batch(dev)
         emit({"phase": "batch", "seconds": time.monotonic() - t, **res})
+    if "fp8_kv" in phases:
+        t = time.monotonic()
+        fp8_launches, e, timing, res = phase_fp8_kv(dev)
+        for name, n in fp8_launches.items():
+            launches[name] += n
+        emit({"phase": "fp8_kv", "seconds": time.monotonic() - t,
+              "max_abs_err": e, "times": timing, **res})
     if "ssd" in phases:
         t = time.monotonic()
         e, timing = phase_ssd(dev)

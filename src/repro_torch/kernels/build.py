@@ -28,8 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: positions per block of the split decode kernels K2 and K4 (kSplit in
 #: csrc/split_decode.cuh)
 SPLIT = 64
-#: dtype codes of the C entries
-DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: dtype codes of the C entries; float8_e4m3fn only as a K/V cache's
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 CUDA_ERROR_INVALID_VALUE = 1
 
 _loaded: dict[str, object] = {}
@@ -91,14 +91,26 @@ def load(name: str, sources, bind):
 
 
 def dtype_code(t: torch.Tensor, what: str) -> int:
-    """The C entries' code for ``t``'s dtype; fp8 raises NotImplementedError,
-    any other dtype TypeError."""
+    """The C entries' code for ``t``'s dtype (a K/V cache's: f32, bf16 or
+    float8_e4m3fn); float8_e5m2 raises NotImplementedError, any other dtype
+    TypeError."""
     if t.dtype in DTYPE_CODE:
         return DTYPE_CODE[t.dtype]
-    if t.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+    if t.dtype == torch.float8_e5m2:
         raise NotImplementedError(
-            f"{what}: fp8 KV is not supported by the CUDA kernels yet")
+            f"{what}: float8_e5m2 K/V is not supported by the CUDA kernels "
+            "(float8_e4m3fn is)")
     raise TypeError(f"{what}: unsupported dtype {t.dtype}")
+
+
+def compute_code(t: torch.Tensor, what: str) -> int:
+    """The code of a compute-dtype input (q, new K/V rows, norm weights):
+    f32 or bf16; fp8 is a cache's dtype only."""
+    code = dtype_code(t, what)
+    if code > 1:
+        raise TypeError(f"{what}: {t.dtype} is a K/V cache dtype; the "
+                        "kernels compute in float32 or bfloat16")
+    return code
 
 
 def check_no_grad(what: str, **tensors) -> None:

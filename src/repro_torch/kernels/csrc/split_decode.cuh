@@ -11,7 +11,9 @@
 // units of U bytes, 16 lanes side by side (U = 16, 8 or 4: the widest that
 // divides the row and aligns the K and V pointers; UPL units a lane when a
 // row has more than 16), so at D = 128 in bf16 a warp instruction moves two
-// whole rows.  Each warp loads all of its 2 * NP rows of K and V into
+// whole rows.  K/V may be f32, bf16 or fp8 e4m3fn (a 16-byte unit then
+// holds 16 values, each widened to f32 exactly as it is used); q and the
+// sums stay f32 or bf16 and f32.  Each warp loads all of its 2 * NP rows of K and V into
 // registers before it uses the first.  Every row then gives the G query
 // heads of the group their dot products from registers (loaded once for all
 // G), each summed across its half-warp by four shuffles; per head the warp
@@ -264,15 +266,28 @@ struct Variant {
   static constexpr int W = Shape<Tkv, U_, UPL_>::W;
 };
 
+// K/V dtype codes of the C entries: 0 float32, 1 bfloat16, 2 float8_e4m3fn
+inline int kv_bytes(int kv_dtype) { return kv_dtype == 0 ? 4 : kv_dtype == 1 ? 2 : 1; }
+
+// Whether the split walk takes rows of D elements of kv_dtype at the K/V
+// pointers' alignment kv_addr: D 2..256, the row and the pointers whole
+// units of the smallest a variant reads, an element pair and 4 bytes at
+// least (D even in f32 and bf16, a multiple of 4 in fp8).
+inline bool takes(int kv_dtype, int D, uintptr_t kv_addr) {
+  if (kv_dtype < 0 || kv_dtype > 2 || D < 2 || D > 256) return false;
+  const int u = kv_dtype == 0 ? 8 : 4;
+  return (D * kv_bytes(kv_dtype)) % u == 0 && kv_addr % u == 0;
+}
+
 // Calls launch(Variant<...>{}) for rows of D elements of the K/V dtype
-// (kv_bf16) at the K/V pointers' alignment kv_addr, and returns its result:
-// the unit is the widest of 16, 8, 4 bytes that divides a row and aligns
-// both K and V, with UPL units a lane and 16 lanes a row.  Rows must be
-// whole element pairs (D even, 2..256, pointers aligned to a pair); other
-// rows give cudaErrorInvalidValue.
+// (kv_dtype, a code above) at the K/V pointers' alignment kv_addr, and
+// returns its result: the unit is the widest of 16, 8, 4 bytes that divides
+// a row and aligns both K and V, with UPL units a lane and 16 lanes a row.
+// Rows the walk does not take (takes() false) give cudaErrorInvalidValue.
 template <class Launch>
-int dispatch(int kv_bf16, int D, uintptr_t kv_addr, Launch&& launch) {
-  const int row_bytes = D * (kv_bf16 ? 2 : 4);
+int dispatch(int kv_dtype, int D, uintptr_t kv_addr, Launch&& launch) {
+  if (!takes(kv_dtype, D, kv_addr)) return (int)cudaErrorInvalidValue;
+  const int row_bytes = D * kv_bytes(kv_dtype);
   const int unit = row_bytes % 16 == 0 && kv_addr % 16 == 0  ? 16
                    : row_bytes % 8 == 0 && kv_addr % 8 == 0 ? 8
                                                              : 4;
@@ -280,7 +295,14 @@ int dispatch(int kv_bf16, int D, uintptr_t kv_addr, Launch&& launch) {
   while (16 * upl < row_bytes / unit) upl *= 2;
 #define REPRO_VARIANT(TKV, UNIT, UPL) \
   if (unit == UNIT && upl == UPL) return launch(Variant<TKV, UNIT, UPL>{});
-  if (kv_bf16) {
+  if (kv_dtype == 2) {
+    REPRO_VARIANT(fp8e4m3, 16, 1)
+    REPRO_VARIANT(fp8e4m3, 8, 1)
+    REPRO_VARIANT(fp8e4m3, 8, 2)
+    REPRO_VARIANT(fp8e4m3, 4, 1)
+    REPRO_VARIANT(fp8e4m3, 4, 2)
+    REPRO_VARIANT(fp8e4m3, 4, 4)
+  } else if (kv_dtype == 1) {
     REPRO_VARIANT(__nv_bfloat16, 16, 1)
     REPRO_VARIANT(__nv_bfloat16, 16, 2)
     REPRO_VARIANT(__nv_bfloat16, 8, 1)

@@ -88,7 +88,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share a dtype, got {q.dtype}, "
                          f"{k.dtype}, {v.dtype}")
-    code = _build.dtype_code(q, "q")
+    code = _build.compute_code(q, "q")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if variant is None:

@@ -92,7 +92,7 @@ def ssd(x, dt, A, B, C, D, *, chunk: int, variant: str | None = None):
     for name, t in (("dt", dt), ("A", A), ("D", D)):
         if t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
-    code = _build.dtype_code(x, "x")
+    code = _build.compute_code(x, "x")
     if variant is None:
         aligned = all(t.data_ptr() % 16 == 0 for t in (x, B, C))
         variant = variant_for(x.dtype, p, n, int(chunk), aligned)

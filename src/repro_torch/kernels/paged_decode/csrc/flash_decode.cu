@@ -29,7 +29,8 @@
 // query head.
 //
 // The C entry returns cudaErrorInvalidValue for a head dim or group it does
-// not take (D even, 2..256; G >= 1; pointers aligned to an element pair)
+// not take (D 2..256, even, a multiple of 4 over an fp8 cache; G >= 1;
+// pointers aligned to an element pair, to 4 bytes over fp8)
 // and otherwise cudaGetLastError().  The caller passes scratch of
 // B * Hkv * max(1, ceil(S / 64)) * G * (D + 2) floats and B * Hkv counters
 // that are 0 (the kernel leaves them 0).
@@ -63,21 +64,19 @@ __global__ void __launch_bounds__(sd::Shape<Tkv, U, UPL>::W * 32)
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16; window <= 0 means none
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float8_e4m3fn (k and v only);
+// window <= 0 means none
 extern "C" int flash_decode(const void* q, const void* k, const void* v,
                             const void* lengths, void* out, void* m, void* l,
                             void* part, void* count, int B, int Hkv, int G,
                             int S, int D, int window, float scale,
                             int q_dtype, int kv_dtype, void* stream) {
-  if (D < 2 || D > 256 || D % 2 || G < 1 || q_dtype < 0 || q_dtype > 1 ||
-      kv_dtype < 0 || kv_dtype > 1)
-    return (int)cudaErrorInvalidValue;
-  // rows are read in element pairs at least
+  // rows in whole units of the split walk (sd::takes)
   const uintptr_t kv = reinterpret_cast<uintptr_t>(k) |
                        reinterpret_cast<uintptr_t>(v);
-  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(out)) %
-          (q_dtype == 1 ? 4 : 8) ||
-      kv % (kv_dtype == 1 ? 4 : 8))
+  if (G < 1 || q_dtype < 0 || q_dtype > 1 || !sd::takes(kv_dtype, D, kv) ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(out)) %
+          (q_dtype == 1 ? 4 : 8))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Hkv == 0) return (int)cudaSuccess;
   const sd::Params p{q, q_dtype, out, q_dtype, static_cast<float*>(m),

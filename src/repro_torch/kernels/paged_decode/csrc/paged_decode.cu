@@ -47,6 +47,12 @@
 //   after ~45 separate torch ops of the norm and rotary (the earlier
 //   design, one block per sequence writing Hkv*D elements).
 
+// fp8 pages (float8_e4m3fn, the reference's kv_dtype): K1 casts the
+//   new rows as the TPU kernel's astype does, to nearest even with NaN past
+//   the range (common.cuh, from_f32<fp8e4m3>, the non-saturating cvt), and
+//   K2 widens each value to f32 exactly as it reads it; a 16-byte unit then
+//   holds 16 values, and the bytes that bound K2 halve against bf16.
+
 // K2 paged_gather_attend replaces the TPU kernel
 //   repro/kernels/paged_decode/kernel.py::paged_gather_attend
 //   (_gather_attend_kernel).
@@ -236,11 +242,15 @@ int launch_qkv(const QkvArgs& a, int B, int in_dtype, int kv_dtype,
   const int threads = ((a.D + 1) / 2 + 31) / 32 * 32;
 #define REPRO_QKV(TIN, TKV) \
   qkv_write_kernel<TIN, TKV><<<grid, threads, 0, s>>>(a)
+  using repro::fp8e4m3;
   if (in_dtype == 0 && kv_dtype == 0) REPRO_QKV(float, float);
   else if (in_dtype == 0 && kv_dtype == 1) REPRO_QKV(float, __nv_bfloat16);
+  else if (in_dtype == 0 && kv_dtype == 2) REPRO_QKV(float, fp8e4m3);
   else if (in_dtype == 1 && kv_dtype == 0) REPRO_QKV(__nv_bfloat16, float);
   else if (in_dtype == 1 && kv_dtype == 1)
     REPRO_QKV(__nv_bfloat16, __nv_bfloat16);
+  else if (in_dtype == 1 && kv_dtype == 2)
+    REPRO_QKV(__nv_bfloat16, fp8e4m3);
   else return (int)cudaErrorInvalidValue;
 #undef REPRO_QKV
   return (int)cudaGetLastError();
@@ -248,7 +258,7 @@ int launch_qkv(const QkvArgs& a, int B, int in_dtype, int kv_dtype,
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float8_e4m3fn (K/V pages only)
 extern "C" int paged_kv_write(const void* k_new, const void* v_new,
                               void* k_pages, void* v_pages, const void* bt,
                               const void* lengths, const void* frame_ro,
@@ -301,14 +311,11 @@ extern "C" int paged_gather_attend(const void* q, const void* k_pages,
                                    int kv_dtype, void* stream) {
   // the one check of K2's shape limits: the wrapper reports
   // cudaErrorInvalidValue as a head_dim or group the kernel does not take
-  if (D < 2 || D > 256 || D % 2 || G < 1 || q_dtype < 0 || q_dtype > 1 ||
-      kv_dtype < 0 || kv_dtype > 1)
-    return (int)cudaErrorInvalidValue;
-  // rows are read in element pairs at least
+  // (rows in whole units of the split walk, sd::takes)
   const uintptr_t kv = reinterpret_cast<uintptr_t>(k_pages) |
                        reinterpret_cast<uintptr_t>(v_pages);
-  if (reinterpret_cast<uintptr_t>(q) % (q_dtype == 1 ? 4 : 8) ||
-      kv % (kv_dtype == 1 ? 4 : 8))
+  if (G < 1 || q_dtype < 0 || q_dtype > 1 || !sd::takes(kv_dtype, D, kv) ||
+      reinterpret_cast<uintptr_t>(q) % (q_dtype == 1 ? 4 : 8))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || hkv_loc == 0) return (int)cudaSuccess;
   const int S = max_lpages * page_slots;

@@ -67,7 +67,7 @@ def flash_decode(q, k, v, lengths, *, scale: float | None = None,
     if lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,):
         raise ValueError(f"lengths must be int32 [{b}], got "
                          f"{lengths.dtype} {tuple(lengths.shape)}")
-    q_code = _build.dtype_code(q, "q")
+    q_code = _build.compute_code(q, "q")
     kv_code = _build.dtype_code(k, "k")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
@@ -90,8 +90,9 @@ def flash_decode(q, k, v, lengths, *, scale: float | None = None,
     if err == _build.CUDA_ERROR_INVALID_VALUE:
         raise ValueError(
             f"flash_decode refused D={d}, G={g} (CUDA error {err}): the "
-            "kernel takes even head dims 2..256 and pointers aligned to an "
-            "element pair (csrc/flash_decode.cu)")
+            "kernel takes even head dims 2..256 (over an fp8 cache multiples "
+            "of 4) and pointers aligned to an element pair (csrc/"
+            "split_decode.cuh, takes)")
     if err:
         raise RuntimeError(f"flash_decode launch failed: CUDA error {err}")
     LAUNCHES["flash_decode"] += 1

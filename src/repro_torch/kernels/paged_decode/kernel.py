@@ -147,7 +147,7 @@ def paged_kv_write(k_new, v_new, k_pages, v_pages, block_table, lengths,
     sid, n_shards, _ = _meta(meta)
     kv_code = _check_write(k_new, v_new, k_pages, v_pages, block_table,
                            lengths, frame_ro, write_mask)
-    in_code = _build.dtype_code(k_new, "k_new")
+    in_code = _build.compute_code(k_new, "k_new")
     b, hkv, d = k_new.shape
     if b == 0:
         return k_pages, v_pages
@@ -181,7 +181,7 @@ def _check_epilogue(q, k, lengths, q_norm, k_norm):
                               or w.dtype != q.dtype):
             raise ValueError(f"{name} must be [{q.shape[2]}] in {q.dtype}, got "
                              f"{tuple(w.shape)} {w.dtype}")
-    return _build.dtype_code(q, "q")
+    return _build.compute_code(q, "q")
 
 
 def _qkv_launch(q, k, v, q_out, k_out, pages, lengths, q_norm, k_norm, eps,
@@ -282,7 +282,7 @@ def paged_gather_attend(q, k_pages, v_pages, block_table, lengths, meta, *,
         raise ValueError(f"kv heads [{kv_start}, {kv_start + hkv_loc}) exceed "
                          f"the pages' {hkv}")
     _check_tables(block_table, lengths, b)
-    q_code = _build.dtype_code(q, "q")
+    q_code = _build.compute_code(q, "q")
     kv_code = _build.dtype_code(k_pages, "k_pages")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
@@ -309,8 +309,9 @@ def paged_gather_attend(q, k_pages, v_pages, block_table, lengths, meta, *,
     if err == _build.CUDA_ERROR_INVALID_VALUE:
         raise ValueError(
             f"paged_gather_attend refused D={d}, G={g} (CUDA error {err}): "
-            "the kernel takes even head dims 2..256 and pointers aligned to "
-            "an element pair (csrc/paged_decode.cu)")
+            "the kernel takes even head dims 2..256 (over fp8 pages multiples "
+            "of 4) and pointers aligned to an element pair (csrc/"
+            "split_decode.cuh, takes)")
     if err:
         raise RuntimeError(f"paged_gather_attend launch failed: CUDA error {err}")
     LAUNCHES["paged_gather_attend"] += 1

@@ -94,15 +94,19 @@ def write_kv(k_new, v_new, k_pages, v_pages, lengths, bt, fr, wm, *, sid,
     """WRITE half (the plain version of the ``paged_kv_write`` kernel):
     scatter each sequence's new K/V row into its owning shard's page, IN
     PLACE.  Rows that do not write are masked out, never indexed with a
-    sentinel.  Returns (k_pages, v_pages)."""
+    sentinel; the rows are cast as the reference casts them
+    (``L.cast_kv``: NaN past float8_e4m3fn's range).  Returns (k_pages,
+    v_pages)."""
     b, slots = k_new.shape[0], k_pages.shape[1]
     pidx = torch.div(lengths - 1, slots, rounding_mode="floor")
     gpage, ok = write_target(bt, fr, wm, pidx, b, max_pages)
     sel = ok & (gpage % n_shards == sid)
     rows = torch.div(gpage, n_shards, rounding_mode="floor")
     off = (lengths - 1) % slots
-    k_pages.index_put_((rows[sel], off[sel]), k_new[sel].to(k_pages.dtype))
-    v_pages.index_put_((rows[sel], off[sel]), v_new[sel].to(v_pages.dtype))
+    k_pages.index_put_((rows[sel], off[sel]), L.cast_kv(k_new[sel],
+                                                        k_pages.dtype))
+    v_pages.index_put_((rows[sel], off[sel]), L.cast_kv(v_new[sel],
+                                                        v_pages.dtype))
     return k_pages, v_pages
 
 

@@ -152,8 +152,12 @@ def build_step(cfg, shape: ShapeSpec, specs: dict, mesh, dp: tuple,
     "model" axis has one rank nothing splits.
     Installs the mesh context; the caller clears it."""
     model = Model(cfg, device="meta")
-    mesh_ctx.set_context(mesh, batch_axes=dp, tp_axis="model", kv_axes=dp)
     n_dp = _dp_size(mesh, dp)
+    # where the batch splits, the rank runs its rows of the reference's
+    # global batch (dp_rows): an MoE block fills capacity over every rank's
+    # rows, as GSPMD does
+    mesh_ctx.set_context(mesh, batch_axes=dp, tp_axis="model", kv_axes=dp,
+                         dp_rows=shape.global_batch % n_dp == 0)
     rows = _rows(shape.global_batch, n_dp)
     batch = {k: _meta(v, rows) for k, v in specs.items()}
     extra = {"params": model.param_count(), "rows_per_rank": rows}

@@ -165,8 +165,8 @@ def prepare_cross_cache(cfg: ModelConfig, params, embeds: torch.Tensor,
     enc_out = encode(cfg, params, embeds, layers)
     ks, vs = zip(*(L.encode_kv(cfg, p["cross_attn"], enc_out)
                    for p in _layers(cfg, params, layers, "dec")))
-    return dict(cache, xk=torch.stack(ks).to(cache["xk"].dtype),
-                xv=torch.stack(vs).to(cache["xv"].dtype))
+    return dict(cache, xk=L.cast_kv(torch.stack(ks), cache["xk"].dtype),
+                xv=L.cast_kv(torch.stack(vs), cache["xv"].dtype))
 
 
 def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache: dict,

@@ -111,6 +111,32 @@ def stack_defs(defs: dict, n: int) -> dict:
 # ---------------------------------------------------------------------------
 # Norms and positional encodings
 # ---------------------------------------------------------------------------
+#: float8_e4m3fn's largest value, 448, and half a step above it: past this
+#: the reference's cast (ml_dtypes, round to nearest even) gives NaN
+E4M3_ROUNDS_TO_NAN = 464.0
+
+
+def cast_kv(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` in a K/V cache's ``dtype`` with the bits of the reference's
+    ``astype``: torch's cast, which rounds to nearest even as ml_dtypes
+    does, except that into float8_e4m3fn torch saturates at 448 where the
+    reference gives NaN (with ``x``'s sign) past 464, infinities
+    included."""
+    y = x.to(dtype)
+    if dtype != torch.float8_e4m3fn or x.dtype == dtype:
+        return y
+    nan = torch.signbit(x).to(torch.uint8) << 7 | 0x7F
+    return torch.where(x.abs() > E4M3_ROUNDS_TO_NAN, nan,
+                       y.view(torch.uint8)).view(dtype)
+
+
+def _as_bits(t: torch.Tensor) -> torch.Tensor:
+    """A one-byte float cache as its uint8 bits (a view), which gather and
+    scatter take on the CPU, bit for bit; other caches as they are."""
+    return t.view(torch.uint8) if t.is_floating_point() \
+        and t.element_size() == 1 else t
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     """RMS norm in f32, cast back to the input dtype BEFORE the weight
     multiply (as the reference does)."""
@@ -409,6 +435,8 @@ def decode_attention_block(cfg: ModelConfig, p, x: torch.Tensor,
     sentinel, which would wrap to the last position.  Rows that
     ``write_mask`` turns off attend with the new row as the reference's do,
     and then get their old row back (the reference's ``_mask_entry``).
+    The row is cast as the reference casts it (:func:`cast_kv`); a
+    one-byte (fp8) cache is written through its bits.
     With ``attn_impl="pallas"`` the q/k norm and rotary go through
     ``ops.qk_rotate``: on CUDA tensors one K1 launch with its page write
     off."""
@@ -429,10 +457,11 @@ def decode_attention_block(cfg: ModelConfig, p, x: torch.Tensor,
     hit = ((lengths >= 1) & (lengths <= s_max)).view(b, 1, 1, 1)
     saved = []
     for cache, new in ((k_cache, k_new), (v_cache, v_new)):
-        old = cache.gather(2, ix)
-        row = torch.where(hit, new.to(cache.dtype), old)
-        cache.scatter_(2, ix, row)
-        saved.append((cache, old, row))
+        bits = _as_bits(cache)
+        old = bits.gather(2, ix)
+        row = torch.where(hit, _as_bits(cast_kv(new, cache.dtype)), old)
+        bits.scatter_(2, ix, row)
+        saved.append((bits, old, row))
     if cfg.attn_impl == "pallas":
         from repro_torch.kernels.paged_decode.flash_ops import decode_attention
         out = decode_attention(q[:, :, 0], k_cache, v_cache, lengths,

@@ -13,6 +13,14 @@ exactly.  Two dispatches build the same ``[E, C, d]`` expert buffers:
 whole buffer, empty slots included, as in the reference: a decode step
 reads every expert's weights.
 
+On a dp rank's rows of a batch the reference routes as one (the
+trainer's at dp > 1: the reference's GSPMD splits the rows over "data"
+but fills capacity over the global microbatch), the capacity is the
+global batch's and each pair's position is offset by its expert's pairs
+on the earlier dp ranks, exchanged by one integer all-reduce a block
+(:func:`_capacity`): the same pairs drop as on one device over the whole
+batch.
+
 Ties: ``jax.lax.top_k`` takes the lowest index first among equal values.
 ``torch.topk`` promises no order among ties (on the CPU or on CUDA), so
 the port selects by a stable descending sort, which does.
@@ -146,6 +154,48 @@ def _shared(p, xt):
     return swiglu(p["shared"], xt) * gate.to(xt.dtype)
 
 
+def _capacity(cfg: ModelConfig, flat_e: torch.Tensor, t: int, counts=None):
+    """(capacity, buffer slots, offsets) of a block over ``t`` tokens whose
+    choices are ``flat_e`` [T*k].  On one device (or a serving rank, which
+    holds every row) the capacity of ``t`` tokens, buffers that wide and no
+    offsets.  On a dp rank's rows of a batch the reference routes as one
+    (``mesh_ctx.dp_ranks()`` > 1: the trainer's, the dry-run's) the
+    capacity of the global ``t * n_dp`` tokens, each expert's pairs on the
+    earlier dp ranks (``offsets`` [E], one all-reduce: ranks hold the rows
+    in dp order, so the reference's token-major positions over every row
+    are ``offsets[e] + pos``), and buffers as wide as the most pairs the
+    rank keeps of one expert (read on the host): an expert keeps at most
+    its own pairs and what the earlier ranks left of the capacity, so no
+    buffer grows with n_dp beyond what the rank's choices fill.  Meta
+    tensors (the dry-run) hold no choices: their buffers take the rank's
+    even share, the capacity of its ``t`` tokens, a lower bound on what
+    skewed routing allocates (up to ``min(cap, t * k)`` slots).  The read
+    waits for the device once a block (again in remat's recomputation).
+    ``counts`` [E] are the choices per expert where known."""
+    n_dp = mesh_ctx.dp_ranks()
+    cap = moe_capacity(cfg, t * n_dp)
+    if n_dp == 1:
+        return cap, cap, None
+    e = cfg.n_experts
+    if counts is None:
+        counts = torch.zeros(e, dtype=torch.int32, device=flat_e.device) \
+            .index_add_(0, flat_e, torch.ones_like(flat_e, dtype=torch.int32))
+    counts = counts.to(torch.int32)
+    offsets = mesh_ctx.dp_offsets(counts)
+    if counts.device.type == "meta":
+        return cap, moe_capacity(cfg, t), offsets
+    kept = torch.clamp(cap - offsets, min=0).minimum(counts)
+    return cap, max(1, int(kept.max())), offsets
+
+
+def _kept(pos, flat_e, cap, offsets):
+    """Whether each (token, choice) at local position ``pos`` of its expert
+    fits the capacity, its global position offset by ``offsets``."""
+    if offsets is None:
+        return pos < cap
+    return offsets[flat_e] + pos < cap
+
+
 def _scatter_positions(flat_e: torch.Tensor, e: int) -> torch.Tensor:
     """Position of each (token, choice) of ``flat_e`` [T*k] within its
     expert's buffer: the count of earlier pairs with the same expert, by a
@@ -175,17 +225,17 @@ def moe_block_scatter(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     e, k = cfg.n_experts, cfg.n_experts_active
     t = b * s
     xt = x.reshape(t, d)
-    cap = moe_capacity(cfg, t)
     xr, xs = _region_inputs(cfg, p, xt)
     _, weights, idx = _route(cfg, p, xr)
 
     flat_e = idx.reshape(t * k)                                # [T*k]
+    cap, slots, offsets = _capacity(cfg, flat_e, t)
     pos = _scatter_positions(flat_e, e)
-    keep = pos < cap
+    keep = _kept(pos, flat_e, cap, offsets)
     # dropped pairs go to an explicit dump row e, cut off after the scatter
     row = torch.where(keep, flat_e, e)
     col = torch.where(keep, pos, 0)
-    buf = torch.zeros((e + 1, cap, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((e + 1, slots, d), dtype=x.dtype, device=x.device)
     buf[row, col] = xr.repeat_interleave(k, dim=0)
     out_buf = _experts(cfg, p, buf[:e])
     y = _combine(cfg, p, xs, out_buf, flat_e, pos, keep, weights)
@@ -199,18 +249,20 @@ def moe_block_sorted(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     e, k = cfg.n_experts, cfg.n_experts_active
     t = b * s
     xt = x.reshape(t, d)
-    cap = moe_capacity(cfg, t)
     xr, xs = _region_inputs(cfg, p, xt)
     _, weights, idx = _route(cfg, p, xr)
 
     flat_e = idx.reshape(t * k)                                # [T*k]
     pos, order, starts, counts = _sorted_positions(flat_e, e)
-    keep = pos < cap
-    # buffer slot (e, c) holds sorted element starts[e] + c if c < counts[e];
-    # the rest read a clamped element and are zeroed
-    cols = torch.arange(cap, device=x.device)
+    cap, slots, offsets = _capacity(cfg, flat_e, t, counts)
+    keep = _kept(pos, flat_e, cap, offsets)
+    # buffer slot (e, c) holds sorted element starts[e] + c if c < counts[e]
+    # and it is kept; the rest read a clamped element and are zeroed
+    cols = torch.arange(slots, device=x.device)
     gidx = starts[:, None] + cols[None, :]                     # [E, C]
     valid = cols[None, :] < counts[:, None]
+    if offsets is not None:
+        valid = valid & (offsets[:, None] + cols[None, :] < cap)
     tok_choice = order[gidx.clamp(0, t * k - 1)]               # [E, C]
     buf = torch.where(valid[..., None], xr[tok_choice // k], 0)
     out_buf = _experts(cfg, p, buf)

@@ -118,6 +118,7 @@ def _ssd_chunk_scan(cfg: ModelConfig, x, dt, A, B, C, D):
     """Chunked SSD as a loop over chunks, the reference's ``lax.scan``.
 
     x: [Bt, S, H, P]; dt: [Bt, S, H]; B/C: [Bt, S, G, N].
+    Sums in f32, as the reference's, or in f64 where ``x`` is f64.
     Returns (y, final_state [Bt, H, N, P])."""
     bt, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -126,12 +127,14 @@ def _ssd_chunk_scan(cfg: ModelConfig, x, dt, A, B, C, D):
         q -= 1
     nc = s // q
     hpg = h // g
-    xf = x.float().reshape(bt, nc, q, h, p)
-    dtf = dt.float().reshape(bt, nc, q, h)
-    Bf = B.float().reshape(bt, nc, q, g, n)
-    Cf = C.float().reshape(bt, nc, q, g, n)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(acc).reshape(bt, nc, q, h, p)
+    dtf = dt.to(acc).reshape(bt, nc, q, h)
+    Bf = B.to(acc).reshape(bt, nc, q, g, n)
+    Cf = C.to(acc).reshape(bt, nc, q, g, n)
+    A, D = A.to(acc), D.to(acc)
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
-    state = torch.zeros((bt, h, n, p), dtype=torch.float32, device=x.device)
+    state = torch.zeros((bt, h, n, p), dtype=acc, device=x.device)
     ys = []
     for c in range(nc):
         xc, dtc = xf[:, c], dtf[:, c]                 # [Bt,q,H,P], [Bt,q,H]

@@ -357,8 +357,8 @@ def block_prefill(cfg: ModelConfig, i: int, p, x: torch.Tensor,
         out = L.full_attention(cfg, q, k, v, causal=True, window=cfg.window)
         x = x + L.attention_out(cfg, p["attn"],
                                 out.transpose(1, 2).reshape(b, s, -1))
-        entry["k"][:, :, :s] = k
-        entry["v"][:, :, :s] = v
+        entry["k"][:, :, :s] = L.cast_kv(k, entry["k"].dtype)
+        entry["v"][:, :, :s] = L.cast_kv(v, entry["v"].dtype)
     else:
         out, (conv, ssd) = S.ssm_block(cfg, p["mamba"], h, return_state=True)
         x = x + out

@@ -10,7 +10,10 @@ holds process groups: one over ``kv_axes`` (the EMem page owners; when they
 name several mesh dims, one group per slice of the other dims, made with
 ``dist.new_group`` by every rank in the same order) and one over
 ``tp_axis``, plus its own index in each: over ``kv_axes`` row-major, as the
-reference's ``_flat_axis_index``.  The collectives the port calls go
+reference's ``_flat_axis_index``; and one over ``batch_axes``, whose
+ranks hold their blocks of a batch's rows where the context says so
+(``dp_rows``: the trainer's; :func:`dp_offsets` then gives an MoE block
+the counts of the earlier dp ranks).  The collectives the port calls go
 through :func:`all_to_all`, :func:`all_reduce` and :func:`all_gather`,
 which count their calls in :data:`CALLS`; :func:`tp_sum`,
 :func:`tp_gather`, :func:`to_region`, :func:`tp_sum_in_region` and
@@ -71,6 +74,14 @@ class MeshContext:
     tp_group: Any                             # process group over tp_axis
     kv_index: int                             # this rank's flat kv index
     tp_index: int                             # this rank's tp index
+    dp_group: Any                             # process group over batch_axes
+    n_dp: int                                 # ranks over batch_axes
+    dp_index: int                             # this rank's flat dp index
+    #: the model's rows are this rank's block of a batch split over
+    #: ``batch_axes`` (the trainer's, the dry-run's), not every row (the
+    #: serving ranks'): an MoE block then fills capacity over the global
+    #: batch (:func:`dp_offsets`)
+    dp_rows: bool
 
 
 #: groups over several mesh dims, made once per (mesh, axes)
@@ -123,9 +134,11 @@ _CTX: MeshContext | None = None
 
 def set_context(mesh, *, batch_axes: Sequence[str] = ("data",),
                 tp_axis: str = "model",
-                kv_axes: Sequence[str] | None = None) -> MeshContext:
+                kv_axes: Sequence[str] | None = None,
+                dp_rows: bool = False) -> MeshContext:
     """Install ``mesh`` with its axis assignment; every rank calls this
-    together (it may make process groups)."""
+    together (it may make process groups).  ``dp_rows``: the model runs on
+    the rank's rows of a batch split over ``batch_axes``."""
     global _CTX
     kv_axes = tuple(kv_axes if kv_axes is not None else batch_axes)
     kv_group = axes_group(mesh, kv_axes)
@@ -134,10 +147,14 @@ def set_context(mesh, *, batch_axes: Sequence[str] = ("data",),
         raise ValueError(f"kv_axes {kv_axes} are not in the mesh's dim order: "
                          "the group's rank order would not be row-major")
     shape = mesh_shape(mesh)
-    _CTX = MeshContext(mesh, tuple(batch_axes), tp_axis, kv_axes,
+    batch_axes = tuple(batch_axes)
+    _CTX = MeshContext(mesh, batch_axes, tp_axis, kv_axes,
                        math.prod(shape[a] for a in kv_axes), shape[tp_axis],
                        kv_group, mesh.get_group(tp_axis), kv_index,
-                       flat_index(mesh, (tp_axis,)))
+                       flat_index(mesh, (tp_axis,)),
+                       axes_group(mesh, batch_axes),
+                       math.prod(shape[a] for a in batch_axes),
+                       flat_index(mesh, batch_axes), dp_rows)
     return _CTX
 
 
@@ -275,3 +292,23 @@ def tp_max(x: torch.Tensor) -> torch.Tensor:
 def tp_gather(x: torch.Tensor) -> torch.Tensor:
     """Every tp rank's ``x``, stacked in tp order: [tp, *x.shape]."""
     return all_gather(x, _tp_context().tp_group)
+
+
+def dp_ranks() -> int:
+    """The dp ranks whose rows make up the model's batch: the installed
+    context's, where its rows are split over them (``dp_rows``), else 1."""
+    ctx = _CTX
+    return ctx.n_dp if ctx is not None and ctx.dp_rows else 1
+
+
+def dp_offsets(counts: torch.Tensor) -> torch.Tensor:
+    """Each column of ``counts`` [E] (int32, this rank's) summed over the
+    dp ranks before this one, in dp order: one all-reduce of an [n_dp, E]
+    table that holds this rank's row and zeros (gloo stages a CUDA
+    all_gather through the host; an all-reduce it runs on the device).
+    Integers, outside autograd.  Needs :func:`dp_ranks` > 1."""
+    ctx = _CTX
+    table = counts.new_zeros((ctx.n_dp,) + tuple(counts.shape))
+    table[ctx.dp_index] = counts
+    all_reduce(table, "sum", ctx.dp_group)
+    return table[:ctx.dp_index].sum(0, dtype=counts.dtype)

@@ -33,11 +33,15 @@ computing what the reference's GSPMD computes on each rank:
     whose split form holds the one whole head its query heads read; a
     Mamba2 mixer's ``w_in`` and conv, whose split form holds an index set
     of columns; the router, whole in the split form.  The loss runs on
-    them with grad on over the rank's rows of the batch (the contiguous
-    block of its flat index over ``dp_axes``, as ``P("data")`` places
-    them); the split blocks' collectives carry their gradients
-    (``mesh_ctx.to_region``, ``tp_sum``, ``tp_sum_in_region``) and the
-    loss is taken over the rank's vocab block;
+    them with grad on over the rank's rows of each microbatch (the
+    reference's microbatch of global rows, its block by the rank's flat
+    index over ``dp_axes``, as ``P("data")`` places them:
+    :func:`micro_rows`), under a mesh context that says so (``dp_rows``:
+    an MoE block fills its experts' capacity over the global microbatch,
+    its position offset by the earlier dp ranks' counts); the split
+    blocks' collectives carry their gradients (``mesh_ctx.to_region``,
+    ``tp_sum``, ``tp_sum_in_region``) and the loss is taken over the
+    rank's vocab block;
   * gradients -- each leaf's goes back to its state placement: summed over
     tp where the split form holds a partial of it (a whole leaf read
     inside a split region, ``sharding.Cut.summed``; a cut the state does
@@ -46,10 +50,11 @@ computing what the reference's GSPMD computes on each rank:
     state's tp placement])`` redistributed to the parameter's placements
     (a reduce-scatter over dp; over a dp dim of one rank the identity,
     with no collective, as the gather is);
-  * loss -- weighted by the rank's share of the unmasked tokens (times the
-    dp size), so that the dp average is the global masked mean one device
-    takes, and all-reduced over the flat dp group, so every rank reports
-    the same loss.
+  * loss -- each microbatch's weighted by the rank's share of its
+    unmasked tokens (times the dp size, :func:`micro_weights`), so that
+    the dp average is the microbatch's global masked mean, which the
+    reference averages over the microbatches; all-reduced over the flat
+    dp group, so every rank reports the same loss.
 
 At one rank every gather and reduction is the identity and a step equals
 the one-device step bit for bit.  The trainer's collectives are counted
@@ -107,23 +112,50 @@ def make_state_specs(model: Model, mesh, tcfg: TrainConfig):
     return pspecs, opt_specs, opt_specs_master, rules
 
 
+def micro_rows(b: int, microbatches: int, n_dp: int = 1,
+               dp_index: int = 0) -> list[slice]:
+    """The rows of a global batch of ``b`` that dp rank ``dp_index`` of
+    ``n_dp`` takes of each microbatch: microbatch ``i`` is the global rows
+    ``[i*M, (i+1)*M)`` (M = b / microbatches, the reference's
+    ``_split_micro``), split over the dp ranks in order, as ``P("data")``
+    splits the reference's, so the rank takes ``[i*M + r*m, i*M +
+    (r+1)*m)`` with m = M / n_dp."""
+    if b % (microbatches * n_dp):
+        raise ValueError(f"a batch of {b} rows does not split into "
+                         f"{microbatches} microbatches over {n_dp} "
+                         "data-parallel ranks")
+    big = b // microbatches
+    m = big // n_dp
+    return [slice(i * big + dp_index * m, i * big + (dp_index + 1) * m)
+            for i in range(microbatches)]
+
+
 def _split_micro(batch: dict, n: int) -> list[dict]:
-    """[B, ...] -> n batches of [B/n, ...], in order."""
+    """[B, ...] -> n batches of [B/n, ...], in order: a rank's batch (as
+    :meth:`Trainer.place_batch` lays it out, its rows of each microbatch in
+    turn) into its rows of each microbatch."""
     b = next(iter(batch.values())).shape[0]
-    if b % n:
-        raise ValueError(f"batch of {b} does not split into {n} microbatches")
-    m = b // n
-    return [{k: v[i * m:(i + 1) * m] for k, v in batch.items()}
-            for i in range(n)]
+    return [{k: v[rows] for k, v in batch.items()}
+            for rows in micro_rows(b, n)]
+
+
+def micro_weights(counts: torch.Tensor, totals: torch.Tensor,
+                  n_dp: int) -> torch.Tensor:
+    """The loss weight of each microbatch on a dp rank: its unmasked tokens
+    ``counts`` [n] over the microbatch's ``totals`` [n] over every dp rank,
+    times ``n_dp``.  The dp average of the weighted per-rank masked means
+    is then each microbatch's global masked mean, and the microbatches'
+    average the reference's mean of them."""
+    return counts * n_dp / torch.clamp(totals, min=1.0)
 
 
 def _loss_and_grads(model: Model, tcfg: TrainConfig, params, batch: dict,
-                    weight=None):
+                    weights=None):
     """(loss, gradient tree) of ``batch`` over ``params``, averaged over
-    the microbatches; with ``weight`` the loss is multiplied by it before
-    the gradients are taken."""
+    the microbatches; with ``weights`` [microbatches] each microbatch's
+    loss is multiplied by its weight before the gradients are taken."""
 
-    def value_and_grad(mb):
+    def value_and_grad(mb, weight):
         flat = flatten(params)
         for t in flat.values():
             t.requires_grad_(True)
@@ -138,11 +170,13 @@ def _loss_and_grads(model: Model, tcfg: TrainConfig, params, batch: dict,
                                         materialize_grads=True)
         return loss.detach(), unflatten(params, dict(zip(flat, grads)))
 
+    if weights is None:
+        weights = [None] * tcfg.microbatches
     if tcfg.microbatches == 1:
-        return value_and_grad(batch)
+        return value_and_grad(batch, weights[0])
     loss, grads = None, None
-    for mb in _split_micro(batch, tcfg.microbatches):
-        l_mb, g_mb = value_and_grad(mb)
+    for mb, weight in zip(_split_micro(batch, tcfg.microbatches), weights):
+        l_mb, g_mb = value_and_grad(mb, weight)
         if loss is None:
             loss = l_mb.float()
             grads = tree_map(lambda g: g.float(), g_mb)
@@ -153,13 +187,15 @@ def _loss_and_grads(model: Model, tcfg: TrainConfig, params, batch: dict,
     return loss * inv, tree_map(lambda g: g * inv, grads)
 
 
-def _token_count(batch: dict) -> torch.Tensor:
-    """The batch's unmasked tokens, as an f32 scalar on its device."""
+def _token_counts(batch: dict, microbatches: int) -> torch.Tensor:
+    """The unmasked tokens of each microbatch of ``batch`` (a rank's rows
+    of each, :func:`_split_micro`), as f32 [microbatches] on its device."""
     mask = batch.get("mask")
-    if mask is not None:
-        return mask.float().sum()
-    labels = batch["labels"]
-    return torch.tensor(float(labels.numel()), device=labels.device)
+    if mask is None:
+        labels = batch["labels"]
+        return torch.full((microbatches,), labels.numel() / microbatches,
+                          dtype=torch.float32, device=labels.device)
+    return mask.float().reshape(microbatches, -1).sum(-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -313,11 +349,11 @@ def make_train_step(model: Model, ocfg: adamw.AdamWConfig, mesh,
 
     def step_fn(params, opt_state, batch):
         split = model.param_tree()
-        count = _token_count(batch)
-        total = count.clone()
-        dist.all_reduce(total, group=dp_group)
-        weight = count * n_dp / torch.clamp(total, min=1.0)
-        loss, grads = _loss_and_grads(model, tcfg, split, batch, weight)
+        counts = _token_counts(batch, tcfg.microbatches)
+        totals = counts.clone()
+        dist.all_reduce(totals, group=dp_group)
+        loss, grads = _loss_and_grads(model, tcfg, split, batch,
+                                      micro_weights(counts, totals, n_dp))
         dist.all_reduce(loss, group=dp_group)
         loss = loss / n_dp
         CALLS["all_reduce"] += 3
@@ -345,8 +381,9 @@ class Trainer:
     tensor-parallel split form (its tensors the rank's shards, refreshed
     from the state after every step; :meth:`Model.whole_tree
     <repro_torch.models.model.Model.whole_tree>` gathers them whole), and
-    the trainer installs a mesh context over ``mesh`` where none over it
-    is installed."""
+    the trainer installs a mesh context over ``mesh`` (``dp_rows``: its
+    model runs on a dp rank's rows) where the mesh has more than one rank
+    and no such context over it is installed."""
     model: Model
     mesh: Any = None
     ocfg: adamw.AdamWConfig = adamw.AdamWConfig()
@@ -357,15 +394,18 @@ class Trainer:
                 and self.mesh.device_type != self.model.device.type:
             raise ValueError(f"a {self.mesh.device_type} mesh cannot train a "
                              f"model on {self.model.device}")
-        if self.mesh is not None \
-                and mesh_shape(self.mesh)[self.tcfg.tp_axis] > 1:
+        if self.mesh is not None and self.mesh.mesh.numel() > 1:
             ctx = mesh_ctx.get_context()
             if ctx is None or ctx.mesh is not self.mesh \
-                    or ctx.tp_axis != self.tcfg.tp_axis:
+                    or ctx.tp_axis != self.tcfg.tp_axis \
+                    or ctx.batch_axes != tuple(self.tcfg.dp_axes) \
+                    or not ctx.dp_rows:
                 mesh_ctx.set_context(self.mesh,
                                      batch_axes=self.tcfg.dp_axes,
-                                     tp_axis=self.tcfg.tp_axis)
-            if self.model.tp_shard is None:
+                                     tp_axis=self.tcfg.tp_axis,
+                                     kv_axes=self.tcfg.dp_axes, dp_rows=True)
+            if mesh_shape(self.mesh)[self.tcfg.tp_axis] > 1 \
+                    and self.model.tp_shard is None:
                 self.model = self.model.shard()
         self.step_fn, self.params_sh, self.opt_sh = make_train_step(
             self.model, self.ocfg, self.mesh, self.tcfg)
@@ -394,17 +434,16 @@ class Trainer:
         return params, adamw.init(self.ocfg, params)
 
     def place_batch(self, batch: dict) -> dict:
-        """The batch on the model's device; on a mesh, the rank's rows."""
+        """The batch on the model's device; on a mesh, the rank's rows of
+        each microbatch in turn (:func:`micro_rows`)."""
         out = {k: torch.as_tensor(v) for k, v in batch.items()}
         if self.mesh is not None:
             dp = tuple(self.tcfg.dp_axes)
             n = math.prod(mesh_shape(self.mesh)[a] for a in dp)
             b = next(iter(out.values())).shape[0]
-            if b % n:
-                raise ValueError(f"a batch of {b} rows does not split over "
-                                 f"{n} data-parallel ranks")
-            i, m = mesh_ctx.flat_index(self.mesh, dp), b // n
-            out = {k: v[i * m:(i + 1) * m] for k, v in out.items()}
+            rows = micro_rows(b, self.tcfg.microbatches, n,
+                              mesh_ctx.flat_index(self.mesh, dp))
+            out = {k: torch.cat([v[r] for r in rows]) for k, v in out.items()}
         return {k: v.to(self.model.device) for k, v in out.items()}
 
     def restore(self, ckpt, step: int | None = None):

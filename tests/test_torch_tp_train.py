@@ -20,14 +20,17 @@ Held, per step and on the same weights (step 1 from the seed; step 2 from
 the ranks' state after step 1, so that AdamW's first update, which turns
 a gradient's last bits into a weight's sign, does not carry rounding into
 the comparison): the loss and the grad norm the same on every rank and
-within RTOL[arch] of the one-device trainer of as many microbatches as
-the mesh has dp ranks (the rows each dp rank takes: a rank's MoE capacity
-is over its rows), every gradient leaf of step 1 gathered whole within
-RTOL[arch] of the leaf's max |g|; the step-1 loss within 1e-3 of the reference's
-``Model.loss`` on the same weights and rows; each rank's tensors the cut
-``tp_shard_params`` gives, the state's and the split form's weights equal
-after the steps; the all-reduces a step issues, and no other collective;
-the MoE choices pinned across the two sides.
+within RTOL[arch] of the one-device trainer (the MoE archs' over the whole
+batch in one microbatch, as the reference fills an expert's capacity over
+every row at any dp; the others' of as many microbatches as the mesh has
+dp ranks, the rows each dp rank takes), every gradient leaf of step 1
+gathered whole within RTOL[arch] of the leaf's max |g|; the step-1 loss
+within 1e-3 of the reference's ``Model.loss`` on the same weights over the
+whole batch; each rank's tensors the cut ``tp_shard_params`` gives, the
+state's and the split form's weights equal after the steps; the
+all-reduces a step issues (at dp 2 the MoE blocks' count exchange
+included), and no other collective; the MoE choices pinned across the two
+sides.
 """
 import dataclasses
 import time
@@ -62,11 +65,18 @@ def _numpy(tree):
             for k, v in tree.items()}
 
 
+def _micro(shape, arch) -> int:
+    """The microbatches of the one-device run a mesh of ``shape`` is held
+    to: one for an MoE arch (its capacity is the whole batch's at any dp),
+    the mesh's dp ranks for the others (a dp rank's rows, summed in the
+    same order)."""
+    return 1 if arch in TT.MOE else shape[0]
+
+
 def _reference_losses(arch):
     """The reference's ``Model.loss`` (f32) on the seed's weights over the
-    step-1 batch (dp 1), and over the rows of each of 2 dp ranks (dp 2):
-    the mean over the batch's two halves for an MoE arch, whose capacity
-    couples the rows, the whole batch's for the others."""
+    whole step-1 batch, which every mesh's step-1 loss is (an MoE arch's
+    capacity couples the rows at dp 2 as at dp 1)."""
     cfg = TT.cfg_for(arch, "float32")
     params = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), _numpy(
         Model(TT.cfg_for(arch), device="cpu", seed=0).param_tree()))
@@ -76,28 +86,26 @@ def _reference_losses(arch):
     batch = {k: jnp.asarray(v.astype(np.float32) if v.dtype.kind == "f"
                             else v) for k, v in batch.items()}
     loss = jax.jit(JaxModel(JaxConfig(**dataclasses.asdict(cfg))).loss)
-    full = float(loss(params, batch))
-    if arch not in TT.MOE:
-        return {1: full, 2: full}
-    half = TT.B // 2
-    halves = [float(loss(params, {k: v[i * half:(i + 1) * half]
-                                  for k, v in batch.items()}))
-              for i in range(2)]
-    return {1: full, 2: sum(halves) / 2}
+    return float(loss(params, batch))
 
 
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
-    """The one-device step 1 of each arch at 1 and 2 microbatches (the MoE
-    archs' first), the 4-rank spawn (its MoE step-1 choices pinned to
-    those), the others' and the reference's losses while it runs, then the
-    one-device step 2 from each mesh's state after step 1, its MoE choices
-    pinned to the ranks'."""
+    """The one-device step 1 of each arch at the microbatches each mesh is
+    held to (:func:`_micro`; the MoE archs' first), the 4-rank spawn (its
+    MoE step-1 choices pinned to those), the others' and the reference's
+    losses while it runs, then the one-device step 2 from each mesh's
+    state after step 1, its MoE choices pinned to the ranks'."""
     def step_one(archs):
-        return {(n, a): TT.run(a, microbatches=n, steps=(0,))
-                for a in archs for n in (1, 2)}
+        runs = {}
+        for a in archs:
+            for n in {_micro(shape, a) for shape in TT.MESHES}:
+                runs[(n, a)] = TT.run(a, microbatches=n, steps=(0,))
+        return {(shape, a): runs[(_micro(shape, a), a)]
+                for (n, a) in runs for shape in TT.MESHES
+                if _micro(shape, a) == n}
     one = step_one(TT.MOE)
-    pinned = {shape: {a: one[(shape[0], a)]["routes"][0] for a in TT.MOE}
+    pinned = {shape: {a: one[(shape, a)]["routes"][0] for a in TT.MOE}
               for shape in TT.MESHES}
     workdir = tmp_path_factory.mktemp("tp_train")
     handle = TT.spawn(workdir, pinned)
@@ -112,10 +120,10 @@ def run(tmp_path_factory):
     for shape in TT.MESHES:
         dp_lead = [i * shape[1] for i in range(shape[0])]  # tp index 0
         for a in TT.ARCHS:
-            routes = [ids for r in dp_lead
-                      for ids in ranks[r][shape][a]["routes"][1]]
+            routes = TT.dp_joined([ranks[r][shape][a]["routes"][1]
+                                   for r in dp_lead])
             second[(shape, a)] = TT.run(
-                a, microbatches=shape[0], steps=(1,),
+                a, microbatches=_micro(shape, a), steps=(1,),
                 start=ranks[0][shape][a]["state"][0],
                 pins=(None, routes if a in TT.MOE else None))
     return {"one": one, "second": second, "ranks": ranks, "ref": ref}
@@ -137,7 +145,7 @@ def test_steps_match_one_device(run, arch):
     tol = RTOL[arch]
     for shape in TT.MESHES:
         hist = _same_on_every_rank(run, shape, arch, lambda o: o["hist"])
-        for step, want in enumerate((run["one"][(shape[0], arch)],
+        for step, want in enumerate((run["one"][(shape, arch)],
                                      run["second"][(shape, arch)])):
             np.testing.assert_allclose(hist[step], want["hist"][0], rtol=tol,
                                        atol=0, err_msg=f"{shape} {step}")
@@ -146,7 +154,7 @@ def test_steps_match_one_device(run, arch):
             for k, v in got.items():
                 np.testing.assert_array_equal(o[shape][arch]["grads"][0][k],
                                               v)
-        ref = run["one"][(shape[0], arch)]["grads"][0]
+        ref = run["one"][(shape, arch)]["grads"][0]
         assert got.keys() == ref.keys()
         for k, w in ref.items():
             err = np.abs(got[k] - w).max() / max(np.abs(w).max(), 1e-30)
@@ -155,11 +163,11 @@ def test_steps_match_one_device(run, arch):
 
 def test_step_one_loss_matches_reference(run):
     """The step-1 loss within 1e-3 of the reference's ``Model.loss`` on the
-    same weights and rows (:func:`_reference_losses`)."""
+    same weights over the whole batch (:func:`_reference_losses`)."""
     for shape in TT.MESHES:
         for arch in TT.ARCHS:
             got = run["ranks"][0][shape][arch]["hist"][0][0]
-            want = run["ref"][arch][shape[0]]
+            want = run["ref"][arch]
             assert abs(got - want) < 1e-3, (shape, arch, got, want)
 
 
@@ -191,7 +199,7 @@ def test_each_rank_holds_its_shards(run):
                         v, run["ranks"][0][shape][arch]["model"][k])
 
 
-def _model_all_reduces(cfg) -> int:
+def _model_all_reduces(cfg, n_dp: int) -> int:
     """All-reduces the split form issues in a train step (remat "block",
     vocab, heads, MLP columns, experts and SSM heads all split): a row-
     parallel sum forward and a region's input backward for each attention
@@ -201,7 +209,8 @@ def _model_all_reduces(cfg) -> int:
     forward sums again in the recomputation, but its last (the
     recomputation stops at the last tensor the backward reads); the
     embedding's sum, the cross entropy's max and sum, and its input
-    backward."""
+    backward.  At ``n_dp`` > 1 each MoE block adds its count exchange over
+    dp, in the forward and again in the recomputation."""
     def unit(kinds):
         fwd = sum({"attn": 1, "mamba": 2, "ffn": 1, "cross": 1}[k]
                   for k in kinds)
@@ -218,12 +227,16 @@ def _model_all_reduces(cfg) -> int:
             if cfg.layer_has_mlp(i):
                 kinds.append("ffn")
         body = cfg.n_periods * unit(kinds)
+    if n_dp > 1:
+        body += 2 * cfg.n_periods * sum(cfg.layer_has_moe(i)
+                                        for i in range(cfg.layer_period))
     return body + 1 + 3
 
 
 def test_collectives_per_step(run):
     """Each step's collectives on every rank: the split form's all-reduces
-    (:func:`_model_all_reduces`) and the trainer's over tp, no all_gather or
+    (:func:`_model_all_reduces`, at dp 2 the MoE blocks' count exchange)
+    and the trainer's over tp, no all_gather or
     all_to_all; qwen3's trainer sums over tp ``q_norm``'s and ``k_norm``'s
     gradients, and at tp 4 > Hkv gathers ``wk`` and ``wv`` by an
     all-reduce and sums their gradients: 6 a step, 2 at tp 2; the dp
@@ -237,7 +250,8 @@ def test_collectives_per_step(run):
                     own = calls["trainer"]["tp_all_reduce"]
                     assert calls["model"] == {
                         "all_to_all": 0, "all_gather": 0,
-                        "all_reduce": _model_all_reduces(cfg) + own}, \
+                        "all_reduce": _model_all_reduces(cfg, shape[0])
+                        + own}, \
                         (shape, arch)
                     assert calls["trainer"]["reduce_scatter"] == (
                         n_leaves if shape[0] > 1 else 0)
@@ -247,13 +261,13 @@ def test_collectives_per_step(run):
 
 def test_moe_choices_pinned(run):
     """The MoE archs' ranks took the one-device run's step-1 expert choices
-    for their rows, and the one-device step 2 the ranks' choices, every
-    call of every MoE block (forward and recomputation); the flips each
-    side's own choices would have made are counted (none at these
-    shapes)."""
+    for their rows (of the whole batch's, each call), and the one-device
+    step 2 the ranks' choices joined, every call of every MoE block
+    (forward and recomputation); the flips each side's own choices would
+    have made are counted (none at these shapes)."""
     for shape in TT.MESHES:
         for arch in TT.MOE:
-            one = run["one"][(shape[0], arch)]["routes"][0]
+            one = run["one"][(shape, arch)]["routes"][0]
             for rank, o in enumerate(run["ranks"]):
                 res = o[shape][arch]
                 dp_index = rank // shape[1]

@@ -82,10 +82,21 @@ def whole(tree) -> dict:
 
 def dp_share(routes: list, n_dp: int, dp_index: int) -> list:
     """The choices of the rows of dp index ``dp_index`` of ``n_dp`` in one
-    step of a one-device run of ``n_dp`` microbatches: the microbatches'
-    calls come in turn."""
-    n = len(routes) // n_dp
-    return routes[dp_index * n:(dp_index + 1) * n]
+    step of a one-device run over the whole batch (one microbatch): of
+    every call, the rank's block of the tokens (its rows of the batch, in
+    dp order)."""
+    out = []
+    for ids in routes:
+        n = len(ids) // n_dp
+        out.append(ids[dp_index * n:(dp_index + 1) * n])
+    return out
+
+
+def dp_joined(shares: list) -> list:
+    """The inverse of :func:`dp_share`: the dp ranks' choices (one list of
+    calls each, in dp order) joined call by call over the whole batch."""
+    import numpy as np
+    return [np.concatenate(calls) for calls in zip(*shares)]
 
 
 def _load(trainer, state: dict):
@@ -164,7 +175,7 @@ def run(arch: str, mesh=None, *, pins=(None,) * STEPS, microbatches: int = 1,
 def tp_train(rank, workdir, pinned):
     """:func:`run` of every arch on each mesh of MESHES, the MoE archs'
     first-step choices pinned to ``pinned[shape][arch]`` (the one-device
-    run's of as many microbatches as the mesh has dp ranks)."""
+    run's over the whole batch, of which a dp rank takes its rows')."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.parallel import mesh_ctx
     out = {}
